@@ -1,0 +1,79 @@
+"""Build the CUDA sources under ``fedicra_torch/csrc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled on first use into its own shared library
+with a plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
+
+into ``fedicra_torch/_build/`` (ignored by git), named by a hash of the
+source so an edit rebuilds. A failed build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def sources() -> List[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every source that has no current library.
+
+    Returns the compiler's report (``-Xptxas -v``: registers, shared memory,
+    spills) for each source that was built.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    reports = {}
+    for name in sources():
+        so = _target(name)
+        if so.exists():
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, so)
+        reports[name] = proc.stdout
+    return reports
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """The compiled library of ``csrc/<name>.cu``, built first if needed."""
+    so = _target(name)
+    if not so.exists():
+        build_all()
+    return ctypes.CDLL(str(so))

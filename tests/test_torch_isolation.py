@@ -1,0 +1,50 @@
+"""The port stands alone: no JAX stack in its imports (package, chip_smoke.py
+and the port's profiling tool), no silent CPU runs."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fedicra_tpu")
+PORT_FILES = sorted((ROOT / "fedicra_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_round.py",
+]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_module_imports_no_jax_stack(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_files_were_found():
+    assert len(PORT_FILES) > 10 and (ROOT / "chip_smoke.py").exists()
+
+
+@pytest.mark.parametrize("entry", ["make_round_fn", "init_client_state"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    from fedicra_torch.engine import trainer
+    from fedicra_torch.engine.config import TrainConfig
+    from fedicra_torch.models import net_factory
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TrainConfig.for_task("odoc", img_size=32, tree_loss_weight=0.0)
+    model = net_factory("unet_lc_multihead", in_chns=3, class_num=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(trainer, entry)(model, cfg)
+    assert next(model.parameters()).device.type == "cpu"
