@@ -5,18 +5,29 @@
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
-1. build every CUDA source under fedicra_torch/csrc for sm_90a (nvcc);
-2. each kernel against its plain PyTorch twin at the main-path shape
-   (gated CRF: B=12, C=3, 384x384, radius 5), with times and bounds;
-3. the slice's objective on the card against the same objective on the CPU
-   (plain gated CRF there) at a small input;
-4. the main path: one FedICRA local round of the "ours" objective with the
-   tree term off, full-width unet_lc_multihead for ODOC (384^2, batch 12,
-   5 clients, real dropout rates), 2 head steps then 2 body steps, with the
-   kernels' launch counters read around it.
+1. build every CUDA source under fedicra_torch/csrc for sm_90a (one nvcc
+   per source, in parallel);
+2. the gated-CRF kernels against their plain PyTorch twin at the main-path
+   shape (B=12, C=3, 384x384, radius 5), with times and bounds;
+3. the Gaussian-filter kernel against its twin at the dense-CRF shape beside
+   the headline config (B=12, N=192^2, D=5, C=3), value and VJP, with times
+   and bound; then the dense-CRF loss path: one forward and backward at that
+   shape on the card (its launches counted), and the loss on the card
+   against the CPU at a small input;
+4. the tree-energy chain at the main-path shape: MST, Euler tour and the
+   tree filter's forward and backward, each timed per call; one image's MST
+   and tree on the card against the same on the CPU, from the same weights;
+5. the "ours" objective (tree term on) on the card against the CPU at a
+   small input;
+6. the tree-off round: one FedICRA local round of "ours" at
+   tree_loss_weight=0, full-width unet_lc_multihead for ODOC (384^2, batch
+   12, 5 clients, real dropout rates), 1 head step then 1 body step;
+7. the main path: the same round at the default tree_loss_weight=0.1,
+   2 head steps then 2 body steps.
 
-The last lines are the card's name and power limit, one JSON line of
-per-kernel numbers, and {"ok": true, "device": {...}}.
+Each path (3's loss, 6, 7) runs with the launch counters set to 0 just
+before it and read just after. The last lines are the card's name and power
+limit, one JSON line of per-kernel numbers, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -34,10 +45,18 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor-core) op/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# the headline configuration: ODOC at 384^2, batch 12
+BATCH, IMG = 12, 384
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound_ms(ops: float, nbytes: float):
+    """The least time the card could take: (ms, "operations" or "bytes")."""
+    t_ops, t_bytes = ops / FP32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def cuda_median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -88,7 +107,7 @@ def phase_gated_crf(dev):
     from fedicra_torch.losses.gated_crf import gated_crf_features
     from fedicra_torch.ops import gated_crf_cuda as g
 
-    b, c, h, w, r = 12, 3, 384, 384, 5
+    b, c, h, w, r = BATCH, 3, IMG, IMG, 5
     rng = np.random.default_rng(0)
     logits = torch.as_tensor(rng.normal(size=(b, c, h, w)).astype(np.float32), device=dev)
     image = torch.as_tensor(smooth_images(rng, b, h, w), device=dev)
@@ -139,12 +158,8 @@ def phase_gated_crf(dev):
     pairs = b * h * w * ((2 * r + 1) ** 2 - 1)
     in_bytes = 4 * (y.numel() + f.numel())
 
-    def bound(ops, nbytes):
-        t_ops, t_bytes = ops / FP32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-    fwd_bound, fwd_by = bound(pairs * (3 * nf + 2 * c + 5), in_bytes + 4)
-    bwd_bound, bwd_by = bound(pairs * (3 * nf + 2 * c + 2), in_bytes + 4 * y.numel())
+    fwd_bound, fwd_by = bound_ms(pairs * (3 * nf + 2 * c + 5), in_bytes + 4)
+    bwd_bound, bwd_by = bound_ms(pairs * (3 * nf + 2 * c + 2), in_bytes + 4 * y.numel())
     log(f"[gated_crf] fwd kernel {fwd_ms:.4f} ms plain {plain_fwd_ms:.4f} ms bound {fwd_bound:.4f} ms ({fwd_by})")
     log(f"[gated_crf] bwd kernel {bwd_ms:.4f} ms plain {plain_bwd_ms:.4f} ms bound {bwd_bound:.4f} ms ({bwd_by})")
     log("[gated_crf] library_ms: none -- no single PyTorch call computes this function")
@@ -159,14 +174,174 @@ def phase_gated_crf(dev):
     ]
 
 
+def phase_gaussian_filter(dev):
+    """Kernel vs twin at the dense-CRF shape beside the headline config, then
+    the loss path on the card; returns the JSON row (its launches are the
+    loss path's)."""
+    from fedicra_torch.losses.dense_crf import dense_crf_loss
+    from fedicra_torch.losses.tree_energy import resize_linear, resize_nearest
+    from fedicra_torch.ops import gaussian_filter_cuda as gf
+
+    b, c, h, w = BATCH, 3, IMG, IMG
+    rng = np.random.default_rng(3)
+    images = torch.as_tensor(smooth_images(rng, b, h, w), device=dev)
+    logits = torch.as_tensor(rng.normal(size=(b, h, w, c)).astype(np.float32), device=dev)
+    rois = torch.as_tensor((rng.uniform(size=(b, h, w)) < 0.95).astype(np.float32), device=dev)
+    # the filter's inputs as dense_crf_loss forms them (scale_factor 0.5)
+    hw = (h // 2, w // 2)
+    feats = gf.bilateral_features(resize_nearest(images * 255.0, hw), 15.0, 50.0).contiguous()
+    seg = resize_linear(torch.softmax(logits, -1), hw) * resize_nearest(rois[..., None], hw)
+    seg = seg.reshape(b, hw[0] * hw[1], c).contiguous()
+    n, d = feats.shape[1:]
+    cot = torch.as_tensor(rng.uniform(size=(b, n, c)).astype(np.float32), device=dev)
+
+    out_k = gf.gaussian_filter_cuda(feats, seg)
+    out_k2 = gf.gaussian_filter_cuda(feats, seg)
+    seg_req = seg.clone().requires_grad_(True)
+    (vjp_k,) = torch.autograd.grad(gf.gaussian_kernel_filter(feats, seg_req), seg_req, cot)
+    out_p = gf.gaussian_filter_plain(feats, seg)
+    vjp_p = gf.gaussian_filter_plain(feats, cot)
+    torch.cuda.synchronize()
+    if not torch.equal(out_k, out_k2):
+        raise AssertionError("gaussian_filter: two runs on the same input differ")
+    errs = {}
+    for name, got, want in (("value", out_k, out_p), ("vjp", vjp_k, vjp_p)):
+        err = (got - want).abs()
+        errs[name] = err.max().item()
+        log(f"[gaussian] {name}: max |kernel - plain| {errs[name]:.4g}, max relative "
+            f"{(err / want.abs().clamp(min=1e-30)).max().item():.4g} (outputs {want.min().item():.4g}..{want.max().item():.4g})")
+        # rtol 1e-3: the twin forms f_i.f_j - |f_i|^2/2 - |f_j|^2/2 with
+        # |f|^2 up to ~900 here, so it carries ~1e-4 of each exponent's
+        # rounding; the kernel forms the distance directly.
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-5)
+
+    ms = cuda_median_ms(lambda: gf.gaussian_filter_cuda(feats, seg), reps=10, warmup=2)
+    plain_ms = cuda_median_ms(lambda: gf.gaussian_filter_plain(feats, seg), reps=3, warmup=1)
+    # per (query, column) pair, what the function needs: the exponent
+    # f_i.f_j - |f_i|^2/2 - |f_j|^2/2 from per-point norms (one add, D FMAs),
+    # one exp, C accumulating FMAs (an FMA counts two, the exp one)
+    bound, by = bound_ms(b * n * n * (2 * d + 2 + 2 * c), 4 * (feats.numel() + 2 * seg.numel()))
+    log(f"[gaussian] B={b} N={n} D={d} C={c}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"bound {bound:.4f} ms ({by})")
+    log("[gaussian] library_ms: none -- no single PyTorch call computes this function")
+    del out_k, out_k2, vjp_k, out_p, vjp_p, seg_req
+    torch.cuda.empty_cache()
+
+    # the loss path: dense_crf_loss forward and backward at the full shape
+    lg = logits.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    gf.reset_launches()
+    loss = dense_crf_loss(images, torch.softmax(lg, -1), rois)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = gf.launches["gaussian_filter"]
+    log(f"[gaussian] dense_crf_loss {loss.item():.9g}, |dL/dlogits| max {lg.grad.abs().max().item():.4g}, "
+        f"launches {launches}")
+    if not (torch.isfinite(loss) and torch.isfinite(lg.grad).all() and lg.grad.abs().max() > 0):
+        raise AssertionError("dense_crf_loss: non-finite or zero loss or gradient")
+    if launches != 2:
+        raise AssertionError(f"dense_crf_loss: expected 2 launches (forward, VJP), got {launches}")
+
+    # the loss on the card against the CPU (twin) at a small input
+    small = [x[:2, :32, :32] for x in (images, logits, rois)]
+    results = []
+    for device in (dev, "cpu"):
+        im, lo, ro = (x.to(device) for x in small)
+        lo = lo.clone().requires_grad_(True)
+        val = dense_crf_loss(im, torch.softmax(lo, -1), ro)
+        val.backward()
+        results.append((val.item(), lo.grad.cpu()))
+    (v_gpu, g_gpu), (v_cpu, g_cpu) = results
+    log(f"[gaussian] small dense_crf_loss card {v_gpu:.9g} cpu {v_cpu:.9g}")
+    if not math.isclose(v_gpu, v_cpu, rel_tol=1e-4):
+        raise AssertionError(f"dense_crf_loss: card {v_gpu!r} vs cpu {v_cpu!r}")
+    torch.testing.assert_close(g_gpu, g_cpu, rtol=1e-3, atol=1e-5 * g_cpu.abs().max().item())
+    return dict(name="gaussian_filter", route="cuda", source="fedicra_torch/csrc/gaussian_filter.cu",
+                replaces="fedicra_tpu/ops/pallas_kernels.py:38", launches=launches,
+                max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
+def phase_tree_chain(dev):
+    """MST, Euler tour and tree filter at the main-path shape, timed per call;
+    one image's MST and tree on the card against the CPU."""
+    from fedicra_torch.losses.tree_energy import mst_edge_weights, resize_linear
+    from fedicra_torch.ops.mst import boruvka_mst, grid_edges
+    from fedicra_torch.ops.tree import TreeStructure, build_tree
+    from fedicra_torch.ops.tree_filter import tree_filter_refine
+
+    b, h, w, c = BATCH, IMG, IMG, 3
+    V = h * w
+    rng = np.random.default_rng(4)
+    low = torch.as_tensor(smooth_images(rng, b, h, w), device=dev)
+    highs = [
+        resize_linear(torch.as_tensor(rng.normal(size=(b, h // s, w // s, c)).astype(np.float32),
+                                      device=dev), (h, w))
+        for s in (4, 2, 1)
+    ]
+    eu, ev = (torch.as_tensor(a, device=dev).long() for a in grid_edges(h, w))
+
+    # the four trees of a step (low, then the three high guides) in one call
+    dist = mst_edge_weights([low, *highs], eu, ev)
+    sel = boruvka_mst(eu, ev, dist, V)
+    struct = build_tree(eu, ev, sel, V)
+    torch.cuda.synchronize()
+    if not (sel.sum(dim=1) == V - 1).all():
+        raise AssertionError("boruvka_mst: some image did not get V - 1 edges")
+    mst_ms = cuda_median_ms(lambda: boruvka_mst(eu, ev, dist, V), reps=5, warmup=1)
+    tree_ms = cuda_median_ms(lambda: build_tree(eu, ev, sel, V), reps=5, warmup=1)
+
+    # card vs CPU on the same weights: a low-tree image and a 4x-upsampled
+    # guide's (whose weights hold many near-ties)
+    for k in (0, b):
+        sel_cpu = boruvka_mst(eu.cpu(), ev.cpu(), dist[k].cpu(), V)
+        if not torch.equal(sel_cpu, sel[k].cpu()):
+            raise AssertionError(f"MST of image {k}: card and CPU select different edges")
+        tree_cpu = build_tree(eu.cpu(), ev.cpu(), sel_cpu[None], V)
+        for name, a_cpu, a_gpu in zip(TreeStructure._fields, tree_cpu, struct):
+            if not torch.equal(a_cpu[0], a_gpu[k].cpu()):
+                raise AssertionError(f"build_tree of image {k}: {name} differs between card and CPU")
+    log(f"[tree] MST and tree of images 0 and {b} equal on card and CPU")
+
+    # the filter over the first high tree, its weights to the guide (4x upsampled)
+    st = TreeStructure(*(a[b:2 * b] for a in struct))
+    emb = highs[0].reshape(b, V, c).gather(1, st.dfs_vertices[..., None].expand(-1, -1, c))
+    parent_emb = emb.gather(1, st.parent_pos[..., None].expand(-1, -1, c))
+    logw = (-((emb - parent_emb) ** 2).sum(-1)).requires_grad_(True)
+    x = torch.softmax(torch.as_tensor(rng.normal(size=(b, V, c)).astype(np.float32), device=dev), -1)
+    x.requires_grad_(True)
+    g = torch.as_tensor(rng.normal(size=(b, V, c)).astype(np.float32), device=dev)
+    y = tree_filter_refine(x, logw, st.parent_pos, st.size)
+    dx, dlogw = torch.autograd.grad(y, (x, logw), g, retain_graph=True)
+    fwd_ms = cuda_median_ms(lambda: tree_filter_refine(x, logw, st.parent_pos, st.size), reps=5, warmup=1)
+    bwd_ms = cuda_median_ms(lambda: torch.autograd.grad(y, (x, logw), g, retain_graph=True),
+                            reps=5, warmup=1)
+
+    # image 0's filter and VJP on the CPU
+    cpu = [t[:1].detach().cpu() for t in (x, logw, st.parent_pos, st.size, g)]
+    xc, lc = cpu[0].requires_grad_(True), cpu[1].requires_grad_(True)
+    yc = tree_filter_refine(xc, lc, cpu[2], cpu[3])
+    dxc, dlc = torch.autograd.grad(yc, (xc, lc), cpu[4])
+    torch.testing.assert_close(y[:1].detach().cpu(), yc.detach(), rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(dx[:1].cpu(), dxc, rtol=1e-3, atol=1e-4 * dxc.abs().max().item())
+    torch.testing.assert_close(dlogw[:1].cpu(), dlc, rtol=1e-3, atol=1e-4 * dlc.abs().max().item())
+    log(f"[tree] filter of image 0 on card vs CPU: y max |diff| "
+        f"{(y[:1].detach().cpu() - yc.detach()).abs().max().item():.3g}")
+    log(f"[tree] per call at B={b}, {h}x{w}: MST of {4 * b} images {mst_ms:.3f} ms, "
+        f"build_tree of {4 * b} {tree_ms:.3f} ms, filter forward {fwd_ms:.3f} ms, "
+        f"filter backward {bwd_ms:.3f} ms (high tree: dx and dlogw); per step 1, 1, 4 and 4 calls")
+    del struct, sel, dist, y, dx, dlogw
+    torch.cuda.empty_cache()
+
+
 def phase_small_agreement(dev):
-    """The objective on the card (CUDA kernel) against the CPU (plain twin)."""
+    """The objective (tree term on) on the card against the CPU (plain twins)."""
     from fedicra_torch.engine.config import TrainConfig
     from fedicra_torch.engine.objective import ours_loss
     from fedicra_torch.engine.trainer import init_client_state
     from fedicra_torch.models import net_factory
 
-    cfg = TrainConfig.for_task("odoc", img_size=32, batch_size=2, tree_loss_weight=0.0)
+    cfg = TrainConfig.for_task("odoc", img_size=32, batch_size=2, tree_loss_weight=0.1)
     rng = np.random.default_rng(2)
     image = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
     label = np.where(rng.uniform(size=(2, 32, 32)) < 0.7, 3, rng.integers(0, 3, (2, 32, 32)))
@@ -185,16 +360,22 @@ def phase_small_agreement(dev):
             model.decoder.out_conv.weight.grad.cpu(),
         )
     (m_cpu, g_cpu), (m_gpu, g_gpu) = results["cpu"], results[str(dev)]
+    if not m_gpu["loss_tree"] > 0.0:
+        raise AssertionError(f"loss_tree {m_gpu['loss_tree']!r} at tree_loss_weight 0.1")
     for k in m_cpu:
         if not math.isclose(m_cpu[k], m_gpu[k], rel_tol=1e-4, abs_tol=1e-6):
             raise AssertionError(f"{k}: card {m_gpu[k]!r} vs cpu {m_cpu[k]!r}")
-    torch.testing.assert_close(g_gpu, g_cpu, rtol=1e-3, atol=1e-6)
-    log(f"[small] ours_loss card {m_gpu['total_loss']:.7g} cpu {m_cpu['total_loss']:.7g}; "
+    # atol 1e-5: the high trees' MSTs come from aux logits upsampled 4x, whose
+    # weights hold exact ties that each device's rounding breaks its own way
+    torch.testing.assert_close(g_gpu, g_cpu, rtol=1e-3, atol=1e-5)
+    log(f"[small] ours_loss card {m_gpu['total_loss']:.7g} cpu {m_cpu['total_loss']:.7g}, "
+        f"loss_tree card {m_gpu['loss_tree']:.7g} cpu {m_cpu['loss_tree']:.7g}; "
         f"out_conv grad max |diff| {(g_gpu - g_cpu).abs().max().item():.3g}")
 
 
-def main_path_setup(dev):
-    """The main path's workload: ODOC at full width, 4 steps (2 head, 2 body).
+def main_path_setup(dev, tree_loss_weight: float = 0.1, iters: int = 4, rep_iters: int = 2):
+    """The main path's workload: ODOC at full width, by default at the
+    default tree weight with 4 steps (2 head, 2 body).
 
     Returns (cfg, cid, model, state, round_fn, batches); random weights from
     cfg.seed, smooth images and 95%-unlabelled scribbles from numpy seed 1.
@@ -205,7 +386,8 @@ def main_path_setup(dev):
 
     cfg = TrainConfig.for_task(
         "odoc", procedure="ours", strategy="FedICRA", model="unet_lc_multihead",
-        tree_loss_weight=0.0, iters=4, rep_iters=2, batch_size=12,
+        tree_loss_weight=tree_loss_weight, iters=iters, rep_iters=rep_iters, batch_size=BATCH,
+        img_size=IMG,
     )
     cid = 1
     model = net_factory("unet_lc_multihead", in_chns=cfg.in_chns, class_num=cfg.num_classes,
@@ -224,15 +406,17 @@ def main_path_setup(dev):
     return cfg, cid, model, state, round_fn, batches
 
 
-def phase_main_path(dev):
+def phase_round(dev, tag: str, **setup):
     """One FedICRA round at full width; returns the kernels' launch counts."""
     from fedicra_torch.models.params_filters import is_dsn_head, is_head, is_pcs
-    from fedicra_torch.ops import gated_crf_cuda
+    from fedicra_torch.ops import gated_crf_cuda, tree_filter
 
-    cfg, cid, model, state, round_fn, batches = main_path_setup(dev)
+    cfg, cid, model, state, round_fn, batches = main_path_setup(dev, **setup)
     iters, rep = cfg.iters, cfg.rep_iters
+    tree_on = cfg.tree_loss_weight != 0.0
     n_params = sum(p.numel() for p in state.params.values())
-    log(f"[main] unet_lc_multihead {n_params} params; batches {tuple(batches['image'].shape)}; cid {cid}")
+    log(f"[{tag}] unet_lc_multihead {n_params} params; batches {tuple(batches['image'].shape)}; "
+        f"cid {cid}; tree_loss_weight {cfg.tree_loss_weight}; {iters - rep} head + {rep} body steps")
 
     snaps, stamps = [], []
 
@@ -245,31 +429,41 @@ def phase_main_path(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gated_crf_cuda.reset_launches()
+    tree_filter.reset_calls()
     t0 = time.perf_counter()
     new, metrics = round_fn(state, batches, cid, on_step=on_step)
     torch.cuda.synchronize()
     launches = dict(gated_crf_cuda.launches)
+    calls = dict(tree_filter.calls)
 
     losses = metrics["total_loss"].cpu()
     steps = np.diff([t0] + stamps) * 1e3
-    log(f"[main] total_loss per step {losses.tolist()}")
-    for k in ("loss_ce", "loss_crf", "loss_lc"):
-        log(f"[main] {k} per step {metrics[k].cpu().tolist()}")
-    log(f"[main] step ms {[round(float(s), 3) for s in steps]}")
-    log(f"[main] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"[main] kernel launches {launches}")
+    log(f"[{tag}] total_loss per step {losses.tolist()}")
+    for k in ("loss_ce", "loss_tree", "loss_crf", "loss_lc"):
+        log(f"[{tag}] {k} per step {metrics[k].cpu().tolist()}")
+    log(f"[{tag}] step ms {[round(float(s), 3) for s in steps]}")
+    log(f"[{tag}] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[{tag}] kernel launches {launches}; tree filter runs {calls}")
 
     if losses.shape != (iters,) or not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite or misshapen losses {losses}")
-    for k in ("loss_ce", "loss_crf", "loss_lc"):
+    for k in ("loss_ce", "loss_tree", "loss_crf", "loss_lc"):
         if not torch.isfinite(metrics[k]).all():
             raise AssertionError(f"{k} not finite")
+    if tree_on and not (metrics["loss_tree"] > 0).all():
+        raise AssertionError(f"loss_tree {metrics['loss_tree'].tolist()} at weight {cfg.tree_loss_weight}")
     if launches != {"gated_crf_fwd": iters, "gated_crf_bwd": iters}:
         raise AssertionError(f"expected one forward and one backward launch per step, got {launches}")
+    n_filter = 4 * iters if tree_on else 0
+    if calls != {"tree_filter_fwd": n_filter, "tree_filter_bwd": n_filter}:
+        raise AssertionError(f"expected {n_filter} tree filter forwards and backwards, got {calls}")
     before, after, head_end = state.params, new.params, snaps[0]
     for n in before:
-        if (is_pcs(n) or is_dsn_head(n)) and not torch.equal(before[n], after[n]):
-            raise AssertionError(f"frozen parameter {n} changed")
+        if is_pcs(n) and not torch.equal(before[n], after[n]):
+            raise AssertionError(f"frozen PCS parameter {n} changed")
+        if is_dsn_head(n) and torch.equal(before[n], after[n]) == tree_on:
+            raise AssertionError(f"DSN parameter {n}: moved={not tree_on} over the round, "
+                                 f"tree_loss_weight {cfg.tree_loss_weight}")
         moved = not torch.equal(before[n], head_end[n])
         if moved != is_head(n):
             raise AssertionError(f"head phase: {n} moved={moved}")
@@ -295,10 +489,15 @@ def main() -> int:
     phase_build()
     rows = phase_gated_crf(dev)
     torch.cuda.empty_cache()
+    gaussian_row = phase_gaussian_filter(dev)
+    phase_tree_chain(dev)
     phase_small_agreement(dev)
-    launches = phase_main_path(dev)
+    phase_round(dev, "tree-off", tree_loss_weight=0.0, iters=2, rep_iters=1)
+    torch.cuda.empty_cache()
+    launches = phase_round(dev, "main")
     for row in rows:
         row["launches"] = launches[row["name"]]
+    rows.append(gaussian_row)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -2,16 +2,15 @@
 
 Counterpart of ``fedicra_tpu/engine/objective.py``.
 
-"Ours": loss = pCE + tree energy (weight ``tree_loss_weight``)
+"Ours": loss = pCE + MScaleRecurve tree energy (weight ``tree_loss_weight``)
               + ``gatecrf_weight`` * gated CRF + ``alpha`` * loss_lc,
 with loss_lc = -(1/(K-1)) sum_{k != cid} MSE(own bottleneck PCS heatmap,
-heatmap under client k's embedding, no gradient).
-
-The tree-energy term is not ported yet: ``ours_loss`` takes
-``tree_loss_weight == 0`` only (ROADMAP.md, slice 2), where the JAX package
-skips the tree computation too.
+heatmap under client k's embedding, no gradient). At ``tree_loss_weight``
+0 the tree term is skipped, as in the JAX package.
 
 "pce": loss = pCE (+ alpha * loss_lc under FedICRA).
+
+"treeenergy_add": loss = pCE + MScaleAdd tree energy.
 
 The objectives run the model in train mode and so advance its BatchNorm
 running statistics in place, as the reference's torch code does; they
@@ -26,6 +25,7 @@ import torch
 
 from ..losses.gated_crf import gated_crf_loss_auto
 from ..losses.partial import partial_cross_entropy
+from ..losses.tree_energy import multi_scale_tree_energy_loss
 from .config import TrainConfig
 
 
@@ -63,6 +63,18 @@ def _forward(model, images, cid, generator):
     return model(images, emb_idx=emb, generator=generator)
 
 
+def _tree_loss(out, images, labels, cfg: TrainConfig, recursive: bool) -> torch.Tensor:
+    """The multi-scale tree term on the unlabelled ROI, guided by the image
+    (a 1-channel image repeated to 3 channels)."""
+    unlabeled_rois = (labels == cfg.num_classes).float()
+    three_channel = images.repeat(1, 1, 1, 3) if images.shape[-1] == 1 else images
+    loss_tree, _, _, _ = multi_scale_tree_energy_loss(
+        out["logits"], three_channel, *out["aux"], unlabeled_rois,
+        cfg.tree_loss_weight, recursive=recursive,
+    )
+    return loss_tree
+
+
 def ours_loss(
     model,
     batch: Dict[str, torch.Tensor],
@@ -70,21 +82,19 @@ def ours_loss(
     cfg: TrainConfig,
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The FedICRA "Ours" objective with the tree term off; NHWC batch."""
-    if cfg.tree_loss_weight != 0.0:
-        raise NotImplementedError(
-            "the tree-energy term is not ported yet (ROADMAP.md, slice 2); "
-            "set tree_loss_weight=0.0"
-        )
+    """The FedICRA "Ours" objective; NHWC batch."""
     images, labels = batch["image"], batch["label"]
     out = _forward(model, images, cid, generator)
     logits = out["logits"]
     probs = torch.softmax(logits, dim=-1)
 
     loss_ce = partial_cross_entropy(logits, labels, cfg.num_classes)
-    # The DSN heads still ran in train mode above (their running statistics
-    # advance), but their outputs feed only the tree term.
-    loss_tree = logits.new_zeros(())
+    if cfg.tree_loss_weight == 0.0:
+        # The DSN heads still ran in train mode above (their running
+        # statistics advance), but their outputs feed only the tree term.
+        loss_tree = logits.new_zeros(())
+    else:
+        loss_tree = _tree_loss(out, images, labels, cfg, recursive=True)
     loss_crf = gated_crf_loss_auto(probs, images, radius=cfg.gatecrf_radius)
     loss = loss_ce + loss_tree + cfg.gatecrf_weight * loss_crf
     metrics = {"loss_ce": loss_ce, "loss_tree": loss_tree, "loss_crf": loss_crf}
@@ -121,11 +131,24 @@ def pce_loss(
     return loss, metrics
 
 
+def treeenergy_add_loss(
+    model,
+    batch: Dict[str, torch.Tensor],
+    cid: int,
+    cfg: TrainConfig,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """pCE + the additive multi-scale tree term (no contrast term); NHWC batch."""
+    images, labels = batch["image"], batch["label"]
+    out = _forward(model, images, cid, generator)
+    loss_ce = partial_cross_entropy(out["logits"], labels, cfg.num_classes)
+    loss_tree = _tree_loss(out, images, labels, cfg, recursive=False)
+    loss = loss_ce + loss_tree
+    return loss, {"loss_ce": loss_ce, "loss_tree": loss_tree, "total_loss": loss}
+
+
 def get_objective(cfg: TrainConfig):
-    if cfg.procedure == "ours":
-        return ours_loss
-    if cfg.procedure == "pce":
-        return pce_loss
-    raise NotImplementedError(
-        f"procedure {cfg.procedure!r} is not ported yet (ROADMAP.md, slice 2)"
-    )
+    objectives = {"ours": ours_loss, "pce": pce_loss, "treeenergy_add": treeenergy_add_loss}
+    if cfg.procedure not in objectives:
+        raise ValueError(cfg.procedure)
+    return objectives[cfg.procedure]

@@ -7,7 +7,8 @@ with a plain C interface::
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 into ``fedicra_torch/_build/`` (ignored by git), named by a hash of the
-source so an edit rebuilds. A failed build raises; nothing falls back.
+source so an edit rebuilds. The sources compile in parallel, one ``nvcc``
+each. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
 
@@ -48,6 +50,17 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _compile(name: str) -> str:
+    so = _target(name)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, so)
+    return proc.stdout
+
+
 def build_all() -> Dict[str, str]:
     """Compile every source that has no current library.
 
@@ -55,19 +68,11 @@ def build_all() -> Dict[str, str]:
     spills) for each source that was built.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    reports = {}
-    for name in sources():
-        so = _target(name)
-        if so.exists():
-            continue
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
-        os.replace(tmp, so)
-        reports[name] = proc.stdout
-    return reports
+    todo = [name for name in sources() if not _target(name).exists()]
+    # one thread per source, each waiting on its nvcc; leaving the pool
+    # waits for every compile, so no nvcc outlives a failure
+    with ThreadPoolExecutor(max_workers=max(len(todo), 1)) as pool:
+        return dict(zip(todo, pool.map(_compile, todo)))
 
 
 @functools.cache

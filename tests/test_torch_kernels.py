@@ -1,4 +1,5 @@
-"""The gated-CRF CUDA wrapper: its checks here, its kernel on the card.
+"""The CUDA wrappers (gated CRF, Gaussian filter): their checks here, their
+kernels on the card.
 
 This file imports no JAX, so the tests marked ``cuda`` run on a machine with
 a card and no JAX stack (the repo's conftest imports JAX, hence
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from fedicra_torch.ops import gated_crf_cuda
+from fedicra_torch.ops import gated_crf_cuda, gaussian_filter_cuda
 
 
 @pytest.fixture
@@ -80,3 +81,49 @@ def test_kernel_refuses_unsupported_shapes(cuda_device):
         gated_crf_cuda.gated_crf_fwd_cuda(y[:, :3].contiguous(), f[:, :4].contiguous(), 2)
     with pytest.raises(ValueError, match="float32"):
         gated_crf_cuda.gated_crf_fwd_cuda(y[:, :3].double().contiguous(), f.double(), 2)
+
+
+def test_gaussian_wrapper_refuses_cpu_tensors_before_launching():
+    gaussian_filter_cuda.reset_launches()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gaussian_filter_cuda.gaussian_filter_cuda(torch.zeros(1, 8, 5), torch.zeros(1, 8, 3))
+    assert gaussian_filter_cuda.launches == {"gaussian_filter": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b, n, d, c",
+    [(2, 1000, 5, 3), (1, 37, 3, 1), (3, 513, 4, 4), (1, 2049, 5, 2), (2, 4096, 3, 3), (1, 1, 4, 1)],
+)
+def test_gaussian_kernel_matches_plain_twin(cuda_device, b, n, d, c):
+    """Value and VJP at rtol 1e-4 / atol 1e-6 on non-negative values, with N
+    off the 512-row block and the 128-column tile; features spread as the
+    dense CRF's do, so most weights are far from 0 and 1."""
+    rng = np.random.default_rng(n * 10 + d)
+    f = torch.tensor(rng.uniform(0, 3, size=(b, n, d)), dtype=torch.float32, device=cuda_device)
+    v = torch.tensor(rng.uniform(size=(b, n, c)), dtype=torch.float32, device=cuda_device)
+    g = torch.tensor(rng.uniform(size=(b, n, c)), dtype=torch.float32, device=cuda_device)
+    v_k = v.clone().requires_grad_(True)
+    gaussian_filter_cuda.reset_launches()
+    got = gaussian_filter_cuda.gaussian_kernel_filter(f, v_k)
+    (dv,) = torch.autograd.grad(got, v_k, g)
+    torch.cuda.synchronize()
+    assert gaussian_filter_cuda.launches == {"gaussian_filter": 2}
+    torch.testing.assert_close(got, gaussian_filter_cuda.gaussian_filter_plain(f, v), rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(dv, gaussian_filter_cuda.gaussian_filter_plain(f, g), rtol=1e-4, atol=1e-6)
+    # a fixed summation order per output: the same input gives the same bits
+    assert torch.equal(gaussian_filter_cuda.gaussian_filter_cuda(f, v), got.detach())
+
+
+@pytest.mark.cuda
+def test_gaussian_kernel_refuses_unsupported_shapes(cuda_device):
+    f = torch.zeros(1, 8, 5, device=cuda_device)
+    v = torch.zeros(1, 8, 3, device=cuda_device)
+    with pytest.raises(ValueError, match="feature dims"):
+        gaussian_filter_cuda.gaussian_filter_cuda(f[..., :2].contiguous(), v)
+    with pytest.raises(ValueError, match="value channels"):
+        gaussian_filter_cuda.gaussian_filter_cuda(f, torch.zeros(1, 8, 5, device=cuda_device))
+    with pytest.raises(ValueError, match="float32"):
+        gaussian_filter_cuda.gaussian_filter_cuda(f.double(), v.double())
+    with pytest.raises(ValueError, match="differ in B, N"):
+        gaussian_filter_cuda.gaussian_filter_cuda(f, v[:, :4].contiguous())

@@ -1,4 +1,5 @@
-"""The port's "Ours" objective (tree term off) against fedicra_tpu's (CPU)."""
+"""The port's "Ours" objective (tree term off) against fedicra_tpu's (CPU),
+and the tree weight's effect on the port's terms."""
 
 import jax
 import jax.numpy as jnp
@@ -66,12 +67,23 @@ def test_ours_loss_terms_grads_and_stats_match_jax(jax_ours, cid):
     assert_trees_close(port_stats(pm), stats_j, rtol=1e-4, atol=2e-5)
 
 
-def test_ours_loss_refuses_the_tree_term():
-    _, pcfg = configs(tree_loss_weight=0.1)
+def test_ours_loss_takes_the_tree_term():
+    """A nonzero tree weight is taken: the term is positive, linear in the
+    weight, and leaves the other terms as they are at 0. Its value against
+    JAX is held in tests/test_torch_tree_energy.py."""
     _, _, pm = models()
     image, label = batch()
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        port_obj.ours_loss(pm, {"image": t(image), "label": t(label)}, 1, pcfg)
+    pm.eval()  # no running-statistics drift between the three calls
+    runs = {}
+    for weight in (0.0, 0.1, 0.2):
+        _, pcfg = configs(tree_loss_weight=weight)
+        with torch.no_grad():
+            runs[weight] = port_obj.ours_loss(pm, {"image": t(image), "label": t(label)}, 1, pcfg)[1]
+    assert runs[0.0]["loss_tree"].item() == 0.0
+    assert runs[0.1]["loss_tree"].item() > 0.0
+    np.testing.assert_allclose(runs[0.2]["loss_tree"].item(), 2 * runs[0.1]["loss_tree"].item(), rtol=1e-6)
+    for k in ("loss_ce", "loss_crf", "loss_lc"):
+        assert runs[0.1][k].item() == runs[0.0][k].item(), k
 
 
 @pytest.mark.parametrize("cid", [0, 3])

@@ -4,12 +4,15 @@
     python3 tools/profile_torch_round.py
 
 Runs the main path of ``chip_smoke.py``, as ``chip_smoke.main_path_setup``
-builds it (ODOC 384^2, batch 12, full-width unet_lc_multihead, "ours" with
-tree_loss_weight=0, 2 head + 2 body steps; TF32 off): one round to warm up,
-then one round under ``torch.profiler``. Prints the kernel time
-by kernel family and the top kernels, the device-busy share of the
-profiled round's wall time (the union of device intervals: cuDNN may run
-kernels on more than one stream), and one JSON summary line. Needs a CUDA card.
+builds it (ODOC 384^2, batch 12, full-width unet_lc_multihead, "ours" at
+the default tree_loss_weight=0.1, 2 head + 2 body steps; TF32 off): one
+round to warm up, one round timed (step times, peak memory), then one round
+under ``torch.profiler``. Prints the kernel time by kernel family and the
+top kernels, and the device-busy share of the profiled round's wall time
+(the union of device intervals: cuDNN may run kernels on more than one
+stream). Then the same round at tree_loss_weight=0, warmed up and timed, so
+that the tree term's share of the step is the difference. Ends with one
+JSON summary line. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -29,13 +32,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # convolution: cuDNN's batch-norm kernels carry "cudnn" in their names).
 FAMILIES = (
     ("gated_crf", ("gated_crf", "sum_partials")),
+    ("sort", ("sort", "radix")),
+    ("gather_scatter", ("gather", "scatter", "index")),
     ("batch_norm", ("batch_norm", "bn_", "batchnorm", "welford")),
     ("conv", ("conv", "xmma", "implicit", "gemm", "cudnn", "sm90", "cutlass", "winograd", "fft",
               "region_transform")),
     ("optimizer", ("adam", "multi_tensor", "foreach")),
     ("pool_resize", ("pool", "upsample", "interp")),
     ("reduce", ("reduce",)),
-    ("elementwise", ("elementwise", "vectorized", "unrolled", "copy", "fill", "index", "cat")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "copy", "fill", "cat")),
 )
 
 
@@ -58,22 +63,36 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()
-    cfg, cid, _, state, round_fn, batches = main_path_setup(torch.device("cuda"))
+    dev = torch.device("cuda")
 
-    stamps = []
+    def timed_round(cid, state, round_fn, batches):
+        stamps = []
 
-    def on_step(j, metrics):
+        def on_step(j, metrics):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
         torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
+        t0 = time.perf_counter()
+        round_fn(state, batches, cid, on_step=on_step)
+        return np.diff([t0] + stamps) * 1e3
 
-    state, _ = round_fn(state, batches, cid)  # warm-up: cuDNN heuristics, lazy init
-    torch.cuda.synchronize()
+    cfg, cid, _, state, round_fn, batches = main_path_setup(dev)
+    round_fn(state, batches, cid)  # warm-up: cuDNN heuristics, lazy init
+    torch.cuda.reset_peak_memory_stats()
+    steps = timed_round(cid, state, round_fn, batches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        round_fn(state, batches, cid, on_step=on_step)
+        round_fn(state, batches, cid)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+
+    _, cid0, _, state0, round_fn0, batches0 = main_path_setup(dev, tree_loss_weight=0.0)
+    round_fn0(state0, batches0, cid0)  # warm-up
+    steps_off = timed_round(cid0, state0, round_fn0, batches0)
+    tree_share = 1 - steps_off.sum() / steps.sum()
 
     by_kernel = defaultdict(lambda: [0.0, 0])
     device_events = {
@@ -104,10 +123,12 @@ def main() -> int:
     for name, (ms, _) in by_kernel.items():
         fams[family(name)] += ms
 
-    steps = np.diff([t0] + stamps) * 1e3
     print(f"card: {torch.cuda.get_device_name(0)}")
-    print(f"round of {cfg.iters} steps ({cfg.iters - cfg.rep_iters} head, {cfg.rep_iters} body): "
-          f"wall {wall_ms:.3f} ms, step ms {[round(float(s), 3) for s in steps]}")
+    print(f"round of {cfg.iters} steps ({cfg.iters - cfg.rep_iters} head, {cfg.rep_iters} body) at "
+          f"tree_loss_weight {cfg.tree_loss_weight}: step ms {[round(float(s), 3) for s in steps]}, "
+          f"peak memory {peak_gib:.3f} GiB; profiled round wall {wall_ms:.3f} ms")
+    print(f"the same round at tree_loss_weight 0: step ms {[round(float(s), 3) for s in steps_off]}; "
+          f"tree term's share of the step time {100 * tree_share:.2f}%")
     print(f"device busy (union of device intervals) {busy_ms:.3f} ms = "
           f"{100 * busy_ms / wall_ms:.2f}% of wall; idle {100 * (1 - busy_ms / wall_ms):.2f}%; "
           f"kernel time summed over streams {kernel_ms:.3f} ms")
@@ -119,6 +140,8 @@ def main() -> int:
         print(f"  {ms:10.3f} {n:6d}  {name[:110]}")
     print(json.dumps({
         "wall_ms": wall_ms, "step_ms": [float(s) for s in steps], "busy_ms": busy_ms,
+        "peak_gib": peak_gib, "step_ms_tree_off": [float(s) for s in steps_off],
+        "tree_share": tree_share,
         "kernel_ms": kernel_ms,
         "idle_share": 1 - busy_ms / wall_ms, "family_ms": dict(fams),
         "device": torch.cuda.get_device_name(0),
