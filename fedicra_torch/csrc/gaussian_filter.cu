@@ -23,15 +23,15 @@
 // bit-reproducible. No tensor cores: the arithmetic is IEEE fp32 FMA.
 //
 // Bound on the H100 SXM at the dense-CRF shape beside the headline config
-// (B = 12, N = 192^2 = 36864, D = 5, C = 3): 1.63e10 pairs per launch. The
-// function needs 2D + 2 + 2C = 18 fp32 operations a pair: the expanded
-// exponent from per-point norms (one add, D FMAs), one exp, C accumulating
-// FMAs (an FMA counts two, the exp one); 0.29 TFLOP over 67 TFLOP/s =
-// 4.4 ms. Without the exp it is 4.1 ms, and the exps alone on the
-// special-function units (16 per SM per clock) take ~3.9 ms; the 3.5 MB of
-// inputs and output move in ~1 us. This kernel's direct distance issues
-// D + D + C = 13 FP32-pipe instructions a pair, 4 more than the expanded
-// form's D + 1 + C, so it cannot beat ~6 ms at the boost clock.
+// (B = 12, N = 192^2 = 36864, D = 5, C = 3): 1.63e10 ordered pairs per
+// launch. k(i, j) = k(j, i), so the function needs each unordered pair's
+// exponent, expanded from per-point norms (one add, D FMAs; an FMA counts
+// two), and exp once, then C accumulating FMAs per ordered pair: 0.19 TFLOP
+// over 67 TFLOP/s = 2.8 ms (chip_smoke.gaussian_filter_work). Its 8.2 G exps
+// on the special-function units (16 per SM per clock) take ~1.9 ms beside
+// that; the 3.5 MB of inputs and output move in ~1 us. This kernel forms
+// every ordered pair's weight by the direct distance, D + D + C = 13
+// FP32-pipe instructions a pair, so it cannot beat ~6 ms at the boost clock.
 
 #include <cuda_runtime.h>
 #include <stddef.h>

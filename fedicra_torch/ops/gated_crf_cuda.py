@@ -1,19 +1,23 @@
-"""Gated CRF (Potts kernel, no masks): the CUDA kernel, its plain twin, autograd.
+"""Gated CRF (Potts kernel, no masks): the fused CUDA kernel, its plain twins, autograd.
 
 Replaces the Pallas TPU kernels ``_fwd_kernel`` / ``_bwd_kernel`` of
-``fedicra_tpu/ops/gated_crf_pallas.py`` with ``csrc/gated_crf.cu`` (route:
-CUDA C++ for sm_90a, built by ``ops/_build.py`` and bound with ctypes).
+``fedicra_tpu/ops/gated_crf_pallas.py`` with one kernel in ``csrc/gated_crf.cu``
+(route: CUDA C++ for sm_90a, built by ``ops/_build.py`` and bound with
+ctypes) that gives the loss and the gradient's accumulator in one pass.
 
 Layout is planes: ``y`` (B, C, H, W) probabilities and ``feats`` (B, F, H, W)
 guide features, both float32. With offsets o != 0, |dy|, |dx| <= radius::
 
     k_o(q) = exp(-1/2 ||f(q+o) - f(q)||^2)         (y and f zero outside)
+    K(q)   = sum_o k_o(q),   acc(q) = sum_o k_o(q) y(q+o)
     loss   = sum_b sum_q sum_o k_o(q) (1 - <y(q), y(q+o)>) / (B H W)
-    dL/dy  = -2 g / (B H W) * sum_o k_o(q) y(q+o)     (no gradient to f)
+           = sum_b sum_q [K(q) - <y(q), acc(q)>] / (B H W)
+    dL/dy  = -2 g / (B H W) * acc                    (no gradient to f)
 
 ``gated_crf_potts`` takes the plain PyTorch twin for CPU tensors and the
 kernel for CUDA tensors; for a CUDA tensor it launches the kernel or raises.
-``launches`` counts kernel launches of the forward and the backward.
+The forward saves acc when ``y`` needs a gradient, so the backward launches
+nothing. ``launches`` counts launches of the fused kernel.
 """
 
 from __future__ import annotations
@@ -30,32 +34,55 @@ MAX_CHANNELS = 4
 FEATURE_CHANNELS = (3, 5)  # xy + 1 or 3 image channels
 MAX_RADIUS = 5
 
-launches = {"gated_crf_fwd": 0, "gated_crf_bwd": 0}
+launches = {"gated_crf": 0}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    launches["gated_crf"] = 0
+
+
+def _windows(radius: int, h: int, w: int):
+    """The index of each offset's window into (r-padded) planes, o != 0."""
+    r = radius
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            if dy or dx:
+                yield (slice(None), slice(None), slice(r + dy, r + dy + h), slice(r + dx, r + dx + w))
 
 
 def gated_crf_potts_plain(y: torch.Tensor, feats: torch.Tensor, radius: int) -> torch.Tensor:
-    """The kernel's plain PyTorch twin, streaming over the (2r+1)^2 - 1 offsets."""
+    """The loss in plain PyTorch, pair by pair, streaming over the
+    (2r+1)^2 - 1 offsets; differentiable in ``y``. CPU tensors take it."""
     b, _, h, w = y.shape
-    r = radius
-    pad = (r, r, r, r)
-    y_pad = F.pad(y, pad)
-    f_pad = F.pad(feats, pad)
-    f0 = feats
+    pad = (radius,) * 4
+    y_pad, f_pad = F.pad(y, pad), F.pad(feats, pad)
     total = y.new_zeros(())
-    for dy in range(-r, r + 1):
-        for dx in range(-r, r + 1):
-            if dy == 0 and dx == 0:
-                continue
-            win = (slice(None), slice(None), slice(r + dy, r + dy + h), slice(r + dx, r + dx + w))
-            k = torch.exp(-0.5 * ((f_pad[win] - f0) ** 2).sum(dim=1))
-            cross = (y_pad[win] * y).sum(dim=1)
-            total = total + (k * (1.0 - cross)).sum()
+    for win in _windows(radius, h, w):
+        k = torch.exp(-0.5 * ((f_pad[win] - feats) ** 2).sum(dim=1))
+        cross = (y_pad[win] * y).sum(dim=1)
+        total = total + (k * (1.0 - cross)).sum()
     return total / (b * h * w)
+
+
+@torch.no_grad()
+def gated_crf_potts_fused_plain(y: torch.Tensor, feats: torch.Tensor, radius: int):
+    """The fused kernel's plain twin: ``(loss, acc)``, streaming over the offsets.
+
+    Forms K and acc in the inputs' dtype and the loss as the kernel does,
+    sum_q [K(q) - <y(q), acc(q)>] with the per-pixel difference and the sum
+    in float64; the loss comes back in the inputs' dtype. Not differentiable.
+    """
+    b, _, h, w = y.shape
+    pad = (radius,) * 4
+    y_pad, f_pad = F.pad(y, pad), F.pad(feats, pad)
+    k_sum = y.new_zeros((b, h, w))
+    acc = torch.zeros_like(y)
+    for win in _windows(radius, h, w):
+        k = torch.exp(-0.5 * ((f_pad[win] - feats) ** 2).sum(dim=1))
+        k_sum += k
+        acc += k[:, None] * y_pad[win]
+    per_pixel = k_sum.double() - (y.double() * acc.double()).sum(dim=1)
+    return (per_pixel.sum() / (b * h * w)).to(y.dtype), acc
 
 
 def _check(y: torch.Tensor, feats: torch.Tensor, radius: int) -> None:
@@ -82,73 +109,72 @@ def _check(y: torch.Tensor, feats: torch.Tensor, radius: int) -> None:
 def _lib() -> ctypes.CDLL:
     lib = load_library("gated_crf")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gated_crf_num_partials.argtypes = [i, i, i]
-    lib.gated_crf_num_partials.restype = i
-    lib.gated_crf_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
-    lib.gated_crf_fwd.restype = i
-    lib.gated_crf_bwd.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-    lib.gated_crf_bwd.restype = i
+    lib.gated_crf_num_tiles.argtypes = [i, i, i]
+    lib.gated_crf_num_tiles.restype = i
+    lib.gated_crf_fused.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.gated_crf_fused.restype = i
     return lib
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+@functools.cache
+def _done_counter(device_index: int, stream: int) -> torch.Tensor:
+    """The kernel's finished-blocks counter for one stream: zeroed here once,
+    left at 0 by every launch."""
+    return torch.zeros((), dtype=torch.int32, device=torch.device("cuda", device_index))
 
 
-def gated_crf_fwd_cuda(y: torch.Tensor, feats: torch.Tensor, radius: int) -> torch.Tensor:
-    """Launch the forward kernel: the 0-dim loss sum_b S_b / (B H W)."""
+def gated_crf_fused_cuda(y: torch.Tensor, feats: torch.Tensor, radius: int, need_acc: bool = True):
+    """Launch the fused kernel: ``(loss, acc)``, the 0-dim loss and acc
+    (B, C, H, W), or ``(loss, None)`` when ``need_acc`` is false (acc is
+    then formed in registers and not written)."""
     _check(y, feats, radius)
     lib = _lib()
     b, c, h, w = y.shape
-    partial = torch.empty(lib.gated_crf_num_partials(b, h, w), device=y.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    partial = torch.empty(lib.gated_crf_num_tiles(b, h, w), device=y.device, dtype=torch.float64)
     loss = torch.empty((), device=y.device, dtype=torch.float32)
-    err = lib.gated_crf_fwd(
-        y.data_ptr(), feats.data_ptr(), partial.data_ptr(), loss.data_ptr(),
-        b, c, feats.shape[1], h, w, radius, y.device.index, _stream(y),
+    acc = torch.empty_like(y) if need_acc else None
+    err = lib.gated_crf_fused(
+        y.data_ptr(), feats.data_ptr(), None if acc is None else acc.data_ptr(),
+        partial.data_ptr(), _done_counter(y.device.index, stream).data_ptr(), loss.data_ptr(),
+        b, c, feats.shape[1], h, w, radius, y.device.index, stream,
     )
     if err != 0:
-        raise RuntimeError(f"gated_crf_fwd launch failed with CUDA error {err}")
-    launches["gated_crf_fwd"] += 1
-    return loss
-
-
-def gated_crf_bwd_cuda(y: torch.Tensor, feats: torch.Tensor, radius: int) -> torch.Tensor:
-    """Launch the backward kernel: acc(q) = sum_o k_o(q) y(q+o), (B, C, H, W)."""
-    _check(y, feats, radius)
-    lib = _lib()
-    b, c, h, w = y.shape
-    acc = torch.empty_like(y)
-    err = lib.gated_crf_bwd(
-        y.data_ptr(), feats.data_ptr(), acc.data_ptr(),
-        b, c, feats.shape[1], h, w, radius, y.device.index, _stream(y),
-    )
-    if err != 0:
-        raise RuntimeError(f"gated_crf_bwd launch failed with CUDA error {err}")
-    launches["gated_crf_bwd"] += 1
-    return acc
+        raise RuntimeError(f"gated_crf_fused launch failed with CUDA error {err}")
+    launches["gated_crf"] += 1
+    return loss, acc
 
 
 class _GatedCRFPotts(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, feats, radius):
-        ctx.save_for_backward(y, feats)
-        ctx.radius = radius
-        return gated_crf_fwd_cuda(y, feats, radius)
+        loss, acc = gated_crf_fused_cuda(y, feats, radius)
+        ctx.save_for_backward(acc)
+        return loss
 
     @staticmethod
     def backward(ctx, g):
-        y, feats = ctx.saved_tensors
-        acc = gated_crf_bwd_cuda(y, feats, ctx.radius)
-        b, _, h, w = y.shape
-        return acc.mul_(g * (-2.0 / (b * h * w))), None, None
+        (acc,) = ctx.saved_tensors
+        b, _, h, w = acc.shape
+        # out of place: the saved acc must outlive a backward (retain_graph)
+        return acc * (g * (-2.0 / (b * h * w))), None, None
+
+
+def _gated_crf_potts_kernel(y: torch.Tensor, feats: torch.Tensor, radius: int) -> torch.Tensor:
+    """The kernel route: acc is written and saved only when ``y`` will get a
+    gradient (grad mode on and ``y`` requiring one)."""
+    y, feats = y.contiguous(), feats.detach().contiguous()
+    if torch.is_grad_enabled() and y.requires_grad:
+        return _GatedCRFPotts.apply(y, feats, radius)
+    return gated_crf_fused_cuda(y, feats, radius, need_acc=False)[0]
 
 
 def gated_crf_potts(y: torch.Tensor, feats: torch.Tensor, radius: int) -> torch.Tensor:
-    """The gated CRF loss on planes; differentiable in ``y`` only on CUDA.
+    """The gated CRF loss on planes; differentiable in ``y`` only.
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel (which
     raises on what it does not take). There is no fallback between them.
     """
     if y.device.type == "cpu" and feats.device.type == "cpu":
         return gated_crf_potts_plain(y, feats, radius)
-    return _GatedCRFPotts.apply(y.contiguous(), feats.detach().contiguous(), radius)
+    return _gated_crf_potts_kernel(y, feats, radius)

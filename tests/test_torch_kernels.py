@@ -1,4 +1,4 @@
-"""The CUDA wrappers (gated CRF, Gaussian filter): their checks here, their
+"""The CUDA wrappers (fused gated CRF, Gaussian filter): their checks here, their
 kernels on the card.
 
 This file imports no JAX, so the tests marked ``cuda`` run on a machine with
@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import confident_logits, smooth_images
+from fedicra_torch.losses.gated_crf import gated_crf_features
 from fedicra_torch.ops import gated_crf_cuda, gaussian_filter_cuda
 
 
@@ -27,10 +29,10 @@ def test_wrapper_refuses_cpu_tensors_before_launching():
     gated_crf_cuda.reset_launches()
     y, f = torch.zeros(1, 3, 8, 8), torch.zeros(1, 5, 8, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        gated_crf_cuda.gated_crf_fwd_cuda(y, f, 2)
+        gated_crf_cuda.gated_crf_fused_cuda(y, f, 2)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        gated_crf_cuda.gated_crf_bwd_cuda(y, f, 2)
-    assert gated_crf_cuda.launches == {"gated_crf_fwd": 0, "gated_crf_bwd": 0}
+        gated_crf_cuda.gated_crf_fused_cuda(y, f, 2, need_acc=False)
+    assert gated_crf_cuda.launches == {"gated_crf": 0}
 
 
 def test_plain_twin_is_what_cpu_tensors_get():
@@ -40,33 +42,88 @@ def test_plain_twin_is_what_cpu_tensors_get():
     gated_crf_cuda.reset_launches()
     got = gated_crf_cuda.gated_crf_potts(y, f, 3)
     assert got.item() == gated_crf_cuda.gated_crf_potts_plain(y, f, 3).item()
-    assert gated_crf_cuda.launches["gated_crf_fwd"] == 0
+    assert gated_crf_cuda.launches["gated_crf"] == 0
+
+
+def _confident_inputs(rng, b, c, h, w):
+    """Near one-hot maps over smooth class regions and the gated CRF's
+    features of a smooth image, where K(q) and <y(q), acc(q)> nearly cancel."""
+    image = torch.as_tensor(smooth_images(rng, b, h, w))
+    f = gated_crf_features(image, 6.0, 0.1).permute(0, 3, 1, 2).contiguous()
+    return confident_logits(rng, b, c, h, w), f.numpy()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "b, c, nf, h, w, r",
-    [(2, 3, 5, 37, 70, 5), (1, 2, 3, 9, 33, 2), (3, 4, 3, 16, 16, 1), (12, 3, 5, 64, 64, 5)],
+    "b, c, nf, h, w, r, confident",
+    [(2, 3, 5, 37, 70, 5, False), (1, 2, 3, 9, 33, 2, False), (3, 4, 3, 16, 16, 1, False),
+     (12, 3, 5, 64, 64, 5, False), (2, 4, 5, 40, 72, 4, False), (2, 3, 5, 37, 70, 5, True),
+     (12, 3, 5, 64, 64, 5, True)],
 )
-def test_kernel_matches_plain_twin(cuda_device, b, c, nf, h, w, r):
-    """Value at rtol 1e-5, dL/dy at rtol 1e-4 / atol 1e-6, including ragged
-    tiles and every pixel within the radius of a border."""
+def test_kernel_matches_plain_twin(cuda_device, b, c, nf, h, w, r, confident):
+    """Loss at rtol 1e-5 and acc at rtol 1e-4 / atol 1e-6 against the fused
+    twin, including ragged tiles, every pixel within the radius of a border
+    and near one-hot maps; one launch per forward and none in the backward,
+    whose dL/dy is -2/(B H W) acc; the same input gives the same bits."""
     rng = np.random.default_rng(b * 100 + h)
-    logits = torch.tensor(rng.normal(size=(b, c, h, w)), dtype=torch.float32, device=cuda_device)
-    f = torch.tensor(rng.uniform(size=(b, nf, h, w)), dtype=torch.float32, device=cuda_device)
+    if confident:
+        assert nf == 5  # xy + the smooth image's rgb
+        logits, f = _confident_inputs(rng, b, c, h, w)
+    else:
+        logits, f = rng.normal(size=(b, c, h, w)), rng.uniform(size=(b, nf, h, w))
+    logits = torch.tensor(logits, dtype=torch.float32, device=cuda_device)
+    f = torch.tensor(f, dtype=torch.float32, device=cuda_device)
     y = torch.softmax(logits, 1).requires_grad_(True)
-    y_ref = y.detach().clone().requires_grad_(True)
+    want, want_acc = gated_crf_cuda.gated_crf_potts_fused_plain(y.detach(), f, r)
     gated_crf_cuda.reset_launches()
     got = gated_crf_cuda.gated_crf_potts(y, f, r)
-    want = gated_crf_cuda.gated_crf_potts_plain(y_ref, f, r)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    assert gated_crf_cuda.launches == {"gated_crf": 1}
     got.backward()
-    want.backward()
     torch.cuda.synchronize()
-    torch.testing.assert_close(y.grad, y_ref.grad, rtol=1e-4, atol=1e-6)
-    assert gated_crf_cuda.launches == {"gated_crf_fwd": 1, "gated_crf_bwd": 1}
-    # no float atomics: the same input gives the bit-identical loss
-    assert torch.equal(gated_crf_cuda.gated_crf_fwd_cuda(y.detach(), f, r), got.detach())
+    assert gated_crf_cuda.launches == {"gated_crf": 1}
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    torch.testing.assert_close(got, gated_crf_cuda.gated_crf_potts_plain(y.detach(), f, r), rtol=1e-5, atol=0)
+    loss, acc = gated_crf_cuda.gated_crf_fused_cuda(y.detach(), f, r)
+    torch.testing.assert_close(acc, want_acc, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(y.grad, want_acc * (-2.0 / (b * h * w)), rtol=1e-4, atol=1e-6)
+    # no float atomics: the same input gives the bit-identical loss and acc
+    loss2, acc2 = gated_crf_cuda.gated_crf_fused_cuda(y.detach(), f, r)
+    assert torch.equal(loss, got.detach()) and torch.equal(loss2, loss) and torch.equal(acc2, acc)
+
+
+@pytest.mark.cuda
+def test_saved_acc_survives_a_second_backward(cuda_device):
+    rng = np.random.default_rng(7)
+    y = torch.softmax(torch.tensor(rng.normal(size=(2, 3, 37, 70)), dtype=torch.float32,
+                                   device=cuda_device), 1).requires_grad_(True)
+    f = torch.tensor(rng.uniform(size=(2, 5, 37, 70)), dtype=torch.float32, device=cuda_device)
+    gated_crf_cuda.reset_launches()
+    loss = gated_crf_cuda.gated_crf_potts(y, f, 5)
+    (g1,) = torch.autograd.grad(loss, y, retain_graph=True)
+    (g2,) = torch.autograd.grad(loss, y)
+    torch.cuda.synchronize()
+    assert torch.equal(g1, g2)
+    assert gated_crf_cuda.launches == {"gated_crf": 1}
+
+
+@pytest.mark.cuda
+def test_no_grad_launches_once_and_writes_no_acc(cuda_device):
+    rng = np.random.default_rng(8)
+    y = torch.softmax(torch.tensor(rng.normal(size=(4, 3, 64, 64)), dtype=torch.float32,
+                                   device=cuda_device), 1).requires_grad_(True)
+    f = torch.tensor(rng.uniform(size=(4, 5, 64, 64)), dtype=torch.float32, device=cuda_device)
+    with_grad = gated_crf_cuda.gated_crf_potts(y, f, 5).detach()
+    torch.cuda.synchronize()
+    gated_crf_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    with torch.no_grad():
+        got = gated_crf_cuda.gated_crf_potts(y, f, 5)
+    torch.cuda.synchronize()
+    assert gated_crf_cuda.launches == {"gated_crf": 1}
+    # no (B, C, H, W) acc was allocated: only the loss and the per-tile sums
+    assert torch.cuda.max_memory_allocated(cuda_device) - base < y.numel() * 4
+    assert not got.requires_grad and torch.equal(got, with_grad)
 
 
 @pytest.mark.cuda
@@ -74,13 +131,13 @@ def test_kernel_refuses_unsupported_shapes(cuda_device):
     y = torch.zeros(1, 5, 8, 8, device=cuda_device)
     f = torch.zeros(1, 5, 8, 8, device=cuda_device)
     with pytest.raises(ValueError, match="classes"):
-        gated_crf_cuda.gated_crf_fwd_cuda(y, f, 2)
+        gated_crf_cuda.gated_crf_fused_cuda(y, f, 2)
     with pytest.raises(ValueError, match="radius"):
-        gated_crf_cuda.gated_crf_fwd_cuda(y[:, :3].contiguous(), f, 6)
+        gated_crf_cuda.gated_crf_fused_cuda(y[:, :3].contiguous(), f, 6)
     with pytest.raises(ValueError, match="feature channels"):
-        gated_crf_cuda.gated_crf_fwd_cuda(y[:, :3].contiguous(), f[:, :4].contiguous(), 2)
+        gated_crf_cuda.gated_crf_fused_cuda(y[:, :3].contiguous(), f[:, :4].contiguous(), 2)
     with pytest.raises(ValueError, match="float32"):
-        gated_crf_cuda.gated_crf_fwd_cuda(y[:, :3].double().contiguous(), f.double(), 2)
+        gated_crf_cuda.gated_crf_fused_cuda(y[:, :3].double().contiguous(), f.double(), 2)
 
 
 def test_gaussian_wrapper_refuses_cpu_tensors_before_launching():

@@ -111,4 +111,4 @@ def test_cuda_wrapper_takes_plain_path_on_cpu_and_counts_nothing():
     want = port_crf.gated_crf_loss(probs, t(image), radius=3)
     assert got.item() == want.item()
     assert lg.grad is not None and torch.isfinite(lg.grad).all()
-    assert gated_crf_cuda.launches == {"gated_crf_fwd": 0, "gated_crf_bwd": 0}
+    assert gated_crf_cuda.launches == {"gated_crf": 0}

@@ -31,7 +31,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # Kernel-name substrings per family, first match wins (batch norm before
 # convolution: cuDNN's batch-norm kernels carry "cudnn" in their names).
 FAMILIES = (
-    ("gated_crf", ("gated_crf", "sum_partials")),
+    ("gated_crf", ("gated_crf",)),  # gated_crf_fused_kernel
     ("sort", ("sort", "radix")),
     ("gather_scatter", ("gather", "scatter", "index")),
     ("batch_norm", ("batch_norm", "bn_", "batchnorm", "welford")),
