@@ -11,8 +11,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    PyTorch twin at the main-path shape (B=12, C=3, 384x384, radius 5), on
    the present inputs and on confident ones, with times and bound;
 3. the Gaussian-filter kernel against its twin at the dense-CRF shape beside
-   the headline config (B=12, N=192^2, D=5, C=3), value and VJP, with times
-   and bound; then the dense-CRF loss path: one forward and backward at that
+   the headline config (B=12, N=192^2, D=5, C=3), value and VJP, and against
+   float64 direct sums on 256 rows of each image, with times per call and
+   back to back, bound, and the library yardstick (memory-efficient
+   attention, timed only); then the dense-CRF loss path: one forward and backward at that
    shape on the card (its launches counted), and the loss on the card
    against the CPU at a small input;
 4. the tree-energy chain at the main-path shape: MST, Euler tour and the
@@ -261,25 +263,97 @@ def phase_gated_crf(dev):
                 bound_by=by, library_ms=None)
 
 
-def phase_gaussian_filter(dev):
-    """Kernel vs twin at the dense-CRF shape beside the headline config, then
-    the loss path on the card; returns the JSON row (its launches are the
-    loss path's)."""
-    from fedicra_torch.losses.dense_crf import dense_crf_loss
+def gaussian_filter_inputs(dev):
+    """The dense-CRF loss's inputs beside the headline config and the
+    filter's inputs as dense_crf_loss forms them (scale_factor 0.5).
+
+    Returns (images, logits, rois, feats (B, N, D), seg (B, N, C), rng)."""
     from fedicra_torch.losses.tree_energy import resize_linear, resize_nearest
-    from fedicra_torch.ops import gaussian_filter_cuda as gf
+    from fedicra_torch.ops.gaussian_filter_cuda import bilateral_features
 
     b, c, h, w = BATCH, 3, IMG, IMG
     rng = np.random.default_rng(3)
     images = torch.as_tensor(smooth_images(rng, b, h, w), device=dev)
     logits = torch.as_tensor(rng.normal(size=(b, h, w, c)).astype(np.float32), device=dev)
     rois = torch.as_tensor((rng.uniform(size=(b, h, w)) < 0.95).astype(np.float32), device=dev)
-    # the filter's inputs as dense_crf_loss forms them (scale_factor 0.5)
     hw = (h // 2, w // 2)
-    feats = gf.bilateral_features(resize_nearest(images * 255.0, hw), 15.0, 50.0).contiguous()
+    feats = bilateral_features(resize_nearest(images * 255.0, hw), 15.0, 50.0).contiguous()
     seg = resize_linear(torch.softmax(logits, -1), hw) * resize_nearest(rois[..., None], hw)
-    seg = seg.reshape(b, hw[0] * hw[1], c).contiguous()
-    n, d = feats.shape[1:]
+    return images, logits, rois, feats, seg.reshape(b, hw[0] * hw[1], c).contiguous(), rng
+
+
+def sample_rows(n: int, k: int = 256) -> torch.Tensor:
+    """k query rows spread evenly over 0..n-1, both ends included."""
+    return torch.linspace(0, n - 1, k).round().long().unique()
+
+
+def direct_float64_rows(feats: torch.Tensor, values: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The filter's rows ``rows`` of every image in float64, from direct
+    differences: sum_j exp(-1/2 ||f_i - f_j||^2) v_j over every column j."""
+    f = feats.double()
+    rows = rows.to(feats.device)
+    out = []
+    for k in range(f.shape[0]):  # one image at a time: (rows, N, D) differences
+        d2 = ((f[k, rows][:, None, :] - f[k][None, :, :]) ** 2).sum(-1)
+        out.append(torch.exp(-0.5 * d2) @ values[k].double())
+    return torch.stack(out)
+
+
+def attention_filter(feats: torch.Tensor, values: torch.Tensor):
+    """The filter by PyTorch's memory-efficient attention, the library
+    yardstick (the port never calls it): softmax(q k^T) v with q = [f, 1] and
+    k = [f, -|f|^2/2], scale 1, then times exp(lse - |f_i|^2/2).
+
+    Returns (a function of no arguments computing it, its head width).
+    Pads the head until the operator takes it; if no width does, raises."""
+    b, n, d = feats.shape
+    c = values.shape[2]
+    half = 0.5 * (feats * feats).sum(-1)
+    efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+    last = None
+    for width in (8, 16, 32):
+        pad = width - d - 1
+        zeros = feats.new_zeros(b, n, pad)
+        q = torch.cat([feats, torch.ones_like(half)[..., None], zeros], -1)[:, None].contiguous()
+        k = torch.cat([feats, -half[..., None], zeros], -1)[:, None].contiguous()
+        v = torch.nn.functional.pad(values, (0, width - c))[:, None].contiguous()
+
+        def run(q=q, k=k, v=v):
+            o, lse = efficient(q, k, v, None, True, 0.0, False, scale=1.0)[:2]
+            return o[:, 0, :, :c] * torch.exp(lse[:, 0, :n] - half)[..., None]
+
+        try:
+            run()
+            torch.cuda.synchronize()
+            return run, width
+        except RuntimeError as err:  # a width the operator refuses: pad further
+            last = err
+    raise RuntimeError(f"memory-efficient attention refused widths 8, 16 and 32: {last}")
+
+
+def cuda_kernel_names(fn, *words: str):
+    """Names of the CUDA kernels one call of fn launches that hold any of
+    ``words``, from torch.profiler; "not traced" if it saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.events()
+                    if e.device_type.name == "CUDA" and any(w in e.key.lower() for w in words)})
+    return names or ["not traced"]
+
+
+def phase_gaussian_filter(dev):
+    """Kernel vs twin and vs float64 at the dense-CRF shape beside the
+    headline config, times beside the library yardstick, then the loss path
+    on the card; returns the JSON row (its launches are the loss path's)."""
+    from fedicra_torch.losses.dense_crf import dense_crf_loss
+    from fedicra_torch.ops import gaussian_filter_cuda as gf
+
+    images, logits, rois, feats, seg, rng = gaussian_filter_inputs(dev)
+    b, n, d = feats.shape
+    c = seg.shape[2]
     cot = torch.as_tensor(rng.uniform(size=(b, n, c)).astype(np.float32), device=dev)
 
     out_k = gf.gaussian_filter_cuda(feats, seg)
@@ -291,26 +365,47 @@ def phase_gaussian_filter(dev):
     torch.cuda.synchronize()
     if not torch.equal(out_k, out_k2):
         raise AssertionError("gaussian_filter: two runs on the same input differ")
+    log(f"[gaussian] max |f|^2 {(feats * feats).sum(-1).max().item():.4g}")
     errs = {}
-    for name, got, want in (("value", out_k, out_p), ("vjp", vjp_k, vjp_p)):
+    rows = sample_rows(n)
+    for name, got, want, vals in (("value", out_k, out_p, seg), ("vjp", vjp_k, vjp_p, cot)):
         err = (got - want).abs()
         errs[name] = err.max().item()
         log(f"[gaussian] {name}: max |kernel - plain| {errs[name]:.4g}, max relative "
             f"{(err / want.abs().clamp(min=1e-30)).max().item():.4g} (outputs {want.min().item():.4g}..{want.max().item():.4g})")
         # rtol 1e-3: the twin forms f_i.f_j - |f_i|^2/2 - |f_j|^2/2 with
         # |f|^2 up to ~900 here, so it carries ~1e-4 of each exponent's
-        # rounding; the kernel forms the distance directly.
+        # rounding; the float64 direct sum below holds the kernel to 1e-4.
         torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-5)
+        exact = direct_float64_rows(feats, vals, rows)
+        sub = got[:, rows.to(dev)].double()
+        log(f"[gaussian] {name}: {len(rows)} rows of each image against float64 direct sums: "
+            f"max relative kernel {((sub - exact).abs() / exact.abs()).max().item():.4g}, "
+            f"twin {((want[:, rows.to(dev)].double() - exact).abs() / exact.abs()).max().item():.4g}")
+        torch.testing.assert_close(sub, exact, rtol=1e-4, atol=1e-6 * exact.abs().max().item())
+
+    run_lib, width = attention_filter(feats, seg)
+    out_lib = run_lib()
+    lib_err = ((out_lib - out_p).abs() / out_p.abs().clamp(min=1e-30)).max().item()
+    log(f"[gaussian] library: aten._scaled_dot_product_efficient_attention (memory-efficient "
+        f"SDPA backend), head width {width}, kernels {cuda_kernel_names(run_lib, 'fmha', 'attention', 'mem_eff')}; "
+        f"max relative error against the twin {lib_err:.4g}")
+    del out_lib
 
     ms = cuda_median_ms(lambda: gf.gaussian_filter_cuda(feats, seg), reps=10, warmup=2)
+    loop_ms = cuda_loop_ms(lambda: gf.gaussian_filter_cuda(feats, seg), n=10, reps=3, warmup=1)
+    library_ms = cuda_median_ms(run_lib, reps=10, warmup=2)
+    library_loop_ms = cuda_loop_ms(run_lib, n=10, reps=3, warmup=1)
     plain_ms = cuda_median_ms(lambda: gf.gaussian_filter_plain(feats, seg), reps=3, warmup=1)
     ops, exps = gaussian_filter_work(b, n, d, c)
     bound, by = bound_ms(ops, 4 * (feats.numel() + 2 * seg.numel()))
-    log(f"[gaussian] B={b} N={n} D={d} C={c}: kernel {ms:.4f} ms per call, plain {plain_ms:.4f} ms, "
-        f"bound {bound:.4f} ms ({by}: {ops} fp32 operations; {exps} exps on the "
-        f"special-function units apart)")
-    log("[gaussian] library_ms: none -- no single PyTorch call computes this function")
-    del out_k, out_k2, vjp_k, out_p, vjp_p, seg_req
+    log(f"[gaussian] plan: workspace of {gf._workspace_floats(b, n, d, c, dev.index or 0)} floats for the "
+        f"column shares of the images split to fill the last wave")
+    log(f"[gaussian] B={b} N={n} D={d} C={c}: kernel {ms:.4f} ms per call, {loop_ms:.4f} ms back to "
+        f"back; library {library_ms:.4f} ms per call, {library_loop_ms:.4f} ms back to back; "
+        f"plain {plain_ms:.4f} ms; bound {bound:.4f} ms ({by}: {ops} fp32 operations; {exps} exps "
+        f"on the special-function units apart; {b * n * n} exps as the kernel takes them)")
+    del out_k, out_k2, vjp_k, out_p, vjp_p, seg_req, run_lib
     torch.cuda.empty_cache()
 
     # the loss path: dense_crf_loss forward and backward at the full shape
@@ -345,7 +440,7 @@ def phase_gaussian_filter(dev):
     return dict(name="gaussian_filter", route="cuda", source="fedicra_torch/csrc/gaussian_filter.cu",
                 replaces="fedicra_tpu/ops/pallas_kernels.py:38", launches=launches,
                 max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=library_ms)
 
 
 def phase_tree_chain(dev):
@@ -558,6 +653,14 @@ def phase_round(dev, tag: str, **setup):
     return launches
 
 
+def card_name_and_power() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -584,11 +687,7 @@ def main() -> int:
     gated_row["launches"] = launches["gated_crf"]
     rows = [gated_row, gaussian_row]
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    print(smi)
+    print(card_name_and_power())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))

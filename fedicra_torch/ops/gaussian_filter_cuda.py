@@ -90,20 +90,38 @@ def _check(feats: torch.Tensor, values: torch.Tensor) -> None:
 def _lib() -> ctypes.CDLL:
     lib = load_library("gaussian_filter")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gaussian_filter.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.gaussian_filter_workspace.argtypes = [i, i, i, i, i]
+    lib.gaussian_filter_workspace.restype = ctypes.c_longlong
+    lib.gaussian_filter.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.gaussian_filter.restype = i
     return lib
 
 
+@functools.cache
+def _workspace_floats(b: int, n: int, d: int, c: int, device_index: int) -> int:
+    """Floats of workspace the kernel's plan for this shape needs on this
+    card: the column shares of the images it splits (0: none)."""
+    size = _lib().gaussian_filter_workspace(b, n, d, c, device_index)
+    if size < 0:
+        raise RuntimeError(f"gaussian_filter cannot plan B={b} N={n} D={d} C={c} on cuda:{device_index}")
+    return size
+
+
 def gaussian_filter_cuda(feats: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on (B, N, D) features and (B, N, C) values."""
+    """Launch the kernel on (B, N, D) features and (B, N, C) values: one
+    call, counted once in ``launches``, though where its plan splits the
+    last images' columns into shares it runs three CUDA kernels (whole
+    blocks, shares, and their fixed-order sum)."""
     _check(feats, values)
     lib = _lib()
     b, n, d = feats.shape
+    c, dev = values.shape[2], feats.device.index
     out = torch.empty_like(values)
+    size = _workspace_floats(b, n, d, c, dev)
+    ws = torch.empty(size, dtype=torch.float32, device=feats.device) if size else None
     err = lib.gaussian_filter(
-        feats.data_ptr(), values.data_ptr(), out.data_ptr(), b, n, d, values.shape[2],
-        feats.device.index, torch.cuda.current_stream(feats.device).cuda_stream,
+        feats.data_ptr(), values.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+        b, n, d, c, dev, torch.cuda.current_stream(feats.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"gaussian_filter launch failed with CUDA error {err}")

@@ -150,12 +150,14 @@ def test_gaussian_wrapper_refuses_cpu_tensors_before_launching():
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "b, n, d, c",
-    [(2, 1000, 5, 3), (1, 37, 3, 1), (3, 513, 4, 4), (1, 2049, 5, 2), (2, 4096, 3, 3), (1, 1, 4, 1)],
+    [(2, 1000, 5, 3), (1, 37, 3, 1), (3, 513, 4, 4), (1, 2049, 5, 2), (2, 4096, 3, 3), (1, 1, 4, 1),
+     (2, 301, 3, 4), (1, 1203, 4, 1), (3, 130, 5, 4), (1, 7, 5, 1)],
 )
 def test_gaussian_kernel_matches_plain_twin(cuda_device, b, n, d, c):
-    """Value and VJP at rtol 1e-4 / atol 1e-6 on non-negative values, with N
-    off the 512-row block and the 128-column tile; features spread as the
-    dense CRF's do, so most weights are far from 0 and 1."""
+    """Value and VJP at rtol 1e-4 / atol 1e-6 on non-negative values, against
+    the twin and a float64 direct sum, with N off the 8-column slice, the
+    256-column tile and the 256-row block; features spread as the dense
+    CRF's do, so most weights are far from 0 and 1."""
     rng = np.random.default_rng(n * 10 + d)
     f = torch.tensor(rng.uniform(0, 3, size=(b, n, d)), dtype=torch.float32, device=cuda_device)
     v = torch.tensor(rng.uniform(size=(b, n, c)), dtype=torch.float32, device=cuda_device)
@@ -168,7 +170,46 @@ def test_gaussian_kernel_matches_plain_twin(cuda_device, b, n, d, c):
     assert gaussian_filter_cuda.launches == {"gaussian_filter": 2}
     torch.testing.assert_close(got, gaussian_filter_cuda.gaussian_filter_plain(f, v), rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(dv, gaussian_filter_cuda.gaussian_filter_plain(f, g), rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(got.double(), _direct_float64(f, v), rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(dv.double(), _direct_float64(f, g), rtol=1e-4, atol=1e-6)
     # a fixed summation order per output: the same input gives the same bits
+    assert torch.equal(gaussian_filter_cuda.gaussian_filter_cuda(f, v), got.detach())
+
+
+def _direct_float64(feats: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """sum_j exp(-1/2 ||f_i - f_j||^2) v_j in float64 from direct differences."""
+    f = feats.double()
+    d2 = ((f[:, :, None, :] - f[:, None, :, :]) ** 2).sum(-1)
+    return torch.exp(-0.5 * d2) @ values.double()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h, w, c", [(37, 41, 3), (48, 48, 4), (23, 61, 1)])
+def test_gaussian_kernel_on_white_regions_matches_float64(cuda_device, h, w, c):
+    """Dense-CRF features ([x/50, y/50, rgb/15] of a smooth image scaled to
+    0..255) with a white square, where |f|^2 reaches ~900 and the expanded
+    exponent's terms cancel most: value at rtol 1e-4 against a float64 direct
+    sum, and at rtol 1e-3 against the fp32 twin, which carries ~1e-4 of each
+    exponent's rounding there; two launches, forward and VJP; same bits."""
+    rng = np.random.default_rng(h * w)
+    img = smooth_images(rng, 2, h, w)
+    img[:, h // 4:h // 2 + 3, w // 3:w // 3 + w // 2] = 1.0
+    f = gaussian_filter_cuda.bilateral_features(
+        torch.as_tensor(img, device=cuda_device) * 255.0, 15.0, 50.0).contiguous()
+    assert (f * f).sum(-1).max().item() > 850.0
+    v = torch.tensor(rng.uniform(size=(2, h * w, c)), dtype=torch.float32, device=cuda_device)
+    g = torch.tensor(rng.uniform(size=(2, h * w, c)), dtype=torch.float32, device=cuda_device)
+    v_k = v.clone().requires_grad_(True)
+    gaussian_filter_cuda.reset_launches()
+    got = gaussian_filter_cuda.gaussian_kernel_filter(f, v_k)
+    (dv,) = torch.autograd.grad(got, v_k, g)
+    torch.cuda.synchronize()
+    assert gaussian_filter_cuda.launches == {"gaussian_filter": 2}
+    for out, vals in ((got.detach(), v), (dv, g)):
+        want = _direct_float64(f, vals)
+        torch.testing.assert_close(out.double(), want, rtol=1e-4, atol=1e-6 * want.abs().max().item())
+        twin = gaussian_filter_cuda.gaussian_filter_plain(f, vals)
+        torch.testing.assert_close(out, twin, rtol=1e-3, atol=1e-6 * twin.abs().max().item())
     assert torch.equal(gaussian_filter_cuda.gaussian_filter_cuda(f, v), got.detach())
 
 
