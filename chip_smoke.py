@@ -26,9 +26,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    tree_loss_weight=0, full-width unet_lc_multihead for ODOC (384^2, batch
    12, 5 clients, real dropout rates), 1 head step then 1 body step;
 7. the main path: the same round at the default tree_loss_weight=0.1,
-   2 head steps then 2 body steps.
+   2 head steps then 2 body steps;
+8. the federation: build_experiment and FederatedServer.run for 2 rounds
+   of FedICRA "ours" at the same width, 5 clients on synthetic ODOC data,
+   ALA's first-run loop in round 2, the evaluation, checkpoints and a
+   resume (``phase_federation``).
 
-Each path (3's loss, 6, 7) runs with the launch counters set to 0 just
+Each path (3's loss, 6, 7, 8) runs with the launch counters set to 0 just
 before it and read just after. The last lines are the card's name and power
 limit, one JSON line of per-kernel numbers, and {"ok": true, "device": {...}}.
 """
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -653,6 +658,192 @@ def phase_round(dev, tag: str, **setup):
     return launches
 
 
+def federation_config(img: int = IMG, batch: int = BATCH):
+    """The federation phase's configuration: FedICRA "ours" for ODOC at full
+    width, 5 clients, 2 local steps a round (1 head, 1 body), ALA from
+    iteration 3 on (the reference waits until 51), evaluation at iteration 4.
+
+    Not ``eval_iters=2``: an evaluate runs the client's whole set_weights
+    (the reference's), so at iteration 2, where ALA is still skipped, each
+    client would adopt the global weights, and round 2's fit would find
+    them equal to its own and skip ALA too."""
+    from fedicra_torch.engine.config import TrainConfig
+
+    return TrainConfig.for_task(
+        "odoc", procedure="ours", strategy="FedICRA", model="unet_lc_multihead",
+        batch_size=batch, img_size=img, iters=2, rep_iters=1, eval_iters=4, ala_skip_iters=2,
+    )
+
+
+def phase_federation(dev, img: int = IMG, batch: int = BATCH, limit: int = 12) -> None:
+    """Two federated rounds through build_experiment and FederatedServer.run.
+
+    Round 1 (iteration 2): every client adopts the global weights (they equal
+    its own), trains 2 steps; the server averages. Round 2 (iteration 4):
+    each client's ALA merge runs its first-run loop (>= 11 epochs), it trains,
+    and the evaluation merges once more (1 epoch) and validates. Then a fresh
+    experiment on the same snapshot directory resumes from it."""
+    import tempfile
+
+    from fedicra_torch.federation import build_experiment
+    from fedicra_torch.models.params_filters import is_ala_gated
+    from fedicra_torch.ops import gated_crf_cuda, tree_filter
+
+    cfg = federation_config(img, batch)
+    with tempfile.TemporaryDirectory(prefix="fedicra_smoke_") as snap:
+        server = build_experiment(cfg, synthetic=True, limit_per_client=limit, snapshot_dir=snap,
+                                  device=dev)
+        log(f"[federation] {cfg.num_clients} clients, {img}^2 x {cfg.in_chns}, batch {batch}, "
+            f"train/val images per client {len(server.clients[0].batcher.split)}/"
+            f"{len(server.clients[0].val_split)}; iters {cfg.iters} (rep {cfg.rep_iters}), "
+            f"eval_iters {cfg.eval_iters}, ala_skip_iters {cfg.ala_skip_iters}")
+        fits, evals = [], []  # per call: (iteration, cid, seconds, ALA report[, FitRes])
+
+        def synced(fn):
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        for c in server.clients:
+            def fit(ins, _c=c, _fit=c.fit):
+                res, dt = synced(lambda: _fit(ins))
+                fits.append((ins.config["iter_global"], _c.cid, dt, dict(_c.ala_report), res))
+                return res
+
+            def evaluate(ins, _c=c, _evaluate=c.evaluate):
+                res, dt = synced(lambda: _evaluate(ins))
+                evals.append((ins.config["iter_global"], _c.cid, dt, dict(_c.ala_report)))
+                return res
+
+            c.fit, c.evaluate = fit, evaluate
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        gated_crf_cuda.reset_launches()
+        tree_filter.reset_calls()
+        history, wall = synced(lambda: server.run(num_rounds=2 * cfg.iters, progress=False))
+        launches, calls = dict(gated_crf_cuda.launches), dict(tree_filter.calls)
+
+        for rec in history:
+            log(f"[federation] round at iteration {rec['round']}: {rec['round_duration']:.3f} s; "
+                f"total_loss per client {[round(rec[f'client_{c}_total_loss'], 6) for c in range(5)]}")
+        log(f"[federation] run {wall:.3f} s")
+        for it, cid, dt, rep, _ in fits:
+            ala = (f"ALA {rep['epochs']} epochs in {rep['seconds']:.3f} s, gate mean "
+                   f"{rep['gate_mean']:.6f}" if rep else "ALA skipped")
+            log(f"[federation] fit iteration {it} client {cid}: {dt:.3f} s ({ala})")
+        for it, cid, dt, rep in evals:
+            ala = (f"ALA {rep['epochs']} epoch(s) in {rep['seconds']:.3f} s, gate mean "
+                   f"{rep['gate_mean']:.6f}" if rep else "ALA skipped")
+            log(f"[federation] evaluate iteration {it} client {cid}: {dt:.3f} s ({ala})")
+        # the run's wall time by activity: local training (fit less its ALA),
+        # ALA (in fit and evaluate), evaluation (evaluate less its ALA), and
+        # the rest (aggregation, logging, checkpoints)
+        reps = [f[3] for f in fits] + [e[3] for e in evals]
+        ala_fit = sum(f[3].get("seconds", 0.0) for f in fits)
+        ala_eval = sum(e[3].get("seconds", 0.0) for e in evals)
+        epochs = sum(rep.get("epochs", 0) for rep in reps)
+        parts = {"local training": sum(f[2] for f in fits) - ala_fit, "ALA": ala_fit + ala_eval,
+                 "evaluation": sum(e[2] for e in evals) - ala_eval}
+        parts["other"] = wall - sum(parts.values())
+        log("[federation] share of the run: " + ", ".join(
+            f"{k} {v:.3f} s ({100 * v / wall:.2f}%)" for k, v in parts.items())
+            + f"; ALA {epochs} epochs, {1000 * parts['ALA'] / max(epochs, 1):.1f} ms each")
+        final = history[-1]
+        for c in range(5):
+            log(f"[federation] client {c}: val_mean_dice {final[f'client_{c}_val_mean_dice']:.6f} "
+                f"val_mean_hd95 {final[f'client_{c}_val_mean_hd95']:.6f}")
+        log(f"[federation] aggregate: val_mean_dice {final['val_mean_dice']:.6f} "
+            f"val_mean_hd95 {final['val_mean_hd95']:.6f} (by val size), val_avg_mean_dice "
+            f"{final['val_avg_mean_dice']:.6f}")
+        if torch.cuda.is_available():
+            log(f"[federation] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        log(f"[federation] kernel launches {launches}; tree filter runs {calls}")
+
+        # ALA: skipped in round 1, the first-run loop in round 2's fit, one
+        # epoch at its evaluate
+        for it, cid, _, rep, _ in fits:
+            if it == cfg.iters and rep:
+                raise AssertionError(f"client {cid}: ALA ran in round 1 ({rep['epochs']} epochs)")
+            if it == 2 * cfg.iters and not (rep and 11 <= rep["epochs"] <= 50):
+                raise AssertionError(f"client {cid}: round 2's fit ran ALA {rep.get('epochs')} epochs")
+        epochs = [(it, rep.get("epochs")) for it, _, _, rep in evals]
+        if epochs != [(2 * cfg.iters, 1)] * 5:
+            raise AssertionError(f"evaluate's ALA epochs by iteration {epochs}")
+        if [c.start_phase for c in server.clients] != [False] * 5:
+            raise AssertionError("start_phase still set after ALA's first run")
+
+        # the global payload is the weighted mean of round 2's fit payloads,
+        # recomputed here in float64
+        last = [f for f in fits if f[0] == 2 * cfg.iters]
+        weights = torch.tensor([float(f[4].num_examples) for f in last], dtype=torch.float64)
+        weights /= weights.sum()
+        for part, tree in server.global_payload.items():
+            for name, got in tree.items():
+                want = sum(w * f[4].payload[part][name].double() for w, f in zip(weights, last))
+                torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=1e-7)
+
+        # the evaluated clients: global weights below, gated ones between
+        # the global and the client's own fit result
+        glob = server.global_payload["params"]
+        for c, (*_, res) in zip(server.clients, last):
+            for name, value in c.state.params.items():
+                if not is_ala_gated(name):
+                    if not torch.equal(value, glob[name]):
+                        raise AssertionError(f"client {c.cid}: non-gated {name} is not the global value")
+                    continue
+                own = res.payload["params"][name]
+                lo, hi = torch.minimum(glob[name], own), torch.maximum(glob[name], own)
+                if not ((value >= lo - 1e-6) & (value <= hi + 1e-6)).all():
+                    raise AssertionError(f"client {c.cid}: gated {name} outside [global, local]")
+
+        nonfinite = {k: v for k, v in final.items()
+                     if isinstance(v, float) and "val_" in k and not math.isfinite(v)}
+        log(f"[federation] non-finite metrics: {len(nonfinite)} {sorted(nonfinite)}")
+        if any("hd95" not in k for k in nonfinite):
+            raise AssertionError(f"non-finite metrics besides hd95: {nonfinite}")
+        for rec in history:
+            for k, v in rec.items():
+                if "loss" in k and isinstance(v, float) and not math.isfinite(v):
+                    raise AssertionError(f"{k} = {v}")
+
+        # a client writes best_client_{cid} when its own val_mean_dice beats
+        # 0 (the reference's rule), the server best_global when the weighted
+        # mean does; at least one client must have written its own
+        wrote = {n: os.path.exists(os.path.join(snap, n))
+                 for n in ["metrics.jsonl", "best_global"] + [f"best_client_{c}" for c in range(5)]}
+        log(f"[federation] snapshot files {wrote}")
+        expect = {"metrics.jsonl": True, "best_global": final["val_mean_dice"] > 0,
+                  **{f"best_client_{c}": final[f"client_{c}_val_mean_dice"] > 0 for c in range(5)}}
+        if wrote != expect or not any(wrote[f"best_client_{c}"] for c in range(5)):
+            raise AssertionError(f"snapshot files {wrote}, expected {expect}")
+
+        server.ckpt.save_resume(server._resume_state())
+        again = build_experiment(cfg, synthetic=True, limit_per_client=limit, snapshot_dir=snap,
+                                 device=dev)
+        if not again.try_resume() or again.current_round != server.current_round:
+            raise AssertionError(f"resume: round {again.current_round} vs {server.current_round}")
+        for a, b in zip(again.clients, server.clients):
+            if a.start_phase != b.start_phase or a.state.current_iter != b.state.current_iter:
+                raise AssertionError(f"resume: client {a.cid}'s start_phase or iteration differs")
+            if not all(torch.equal(a.state.params[k], v) for k, v in b.state.params.items()):
+                raise AssertionError(f"resume: client {a.cid}'s weights differ")
+        log(f"[federation] resumed at iteration {again.current_round}; start_phase "
+            f"{[c.start_phase for c in again.clients]}")
+
+        n_steps = cfg.num_clients * 2 * cfg.iters
+        if launches != {"gated_crf": n_steps}:
+            raise AssertionError(f"expected {n_steps} gated-CRF launches, got {launches}")
+        if calls != {"tree_filter_fwd": 4 * n_steps, "tree_filter_bwd": 4 * n_steps}:
+            raise AssertionError(f"expected {4 * n_steps} tree filter forwards and backwards, got {calls}")
+        del server, again
+
+
 def card_name_and_power() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -686,6 +877,8 @@ def main() -> int:
     launches = phase_round(dev, "main")
     gated_row["launches"] = launches["gated_crf"]
     rows = [gated_row, gaussian_row]
+    torch.cuda.empty_cache()
+    phase_federation(dev)
 
     print(card_name_and_power())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

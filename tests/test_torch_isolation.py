@@ -36,15 +36,45 @@ def test_port_files_were_found():
     assert len(PORT_FILES) > 10 and (ROOT / "chip_smoke.py").exists()
 
 
-@pytest.mark.parametrize("entry", ["make_round_fn", "init_client_state"])
-def test_entry_points_default_to_the_card(monkeypatch, entry):
+def test_port_files_include_every_package_of_the_port():
+    found = {p.parent.name for p in PORT_FILES}
+    assert {"federation", "data", "evaluation", "utils", "engine", "ops"} <= found
+
+
+def _entry_calls():
+    """Each entry point of the port, called as a user would, without ``device``."""
+    import numpy as np
+
+    from fedicra_torch.data import EpochBatcher, make_synthetic_split
     from fedicra_torch.engine import trainer
     from fedicra_torch.engine.config import TrainConfig
+    from fedicra_torch.evaluation import evaluate_client
+    from fedicra_torch.federation import build_experiment
     from fedicra_torch.models import net_factory
 
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = TrainConfig.for_task("odoc", img_size=32, tree_loss_weight=0.0)
+    cfg = TrainConfig.for_task("odoc", img_size=32, batch_size=2, tree_loss_weight=0.0)
     model = net_factory("unet_lc_multihead", in_chns=3, class_num=3)
+    split = make_synthetic_split(2, 32, 32, 3, 3, seed=0, sparse=False)
+    sd = model.state_dict()
+    names = {n for n, _ in model.named_parameters()}
+    return model, {
+        "make_round_fn": lambda: trainer.make_round_fn(model, cfg),
+        "init_client_state": lambda: trainer.init_client_state(model, cfg),
+        "build_experiment": lambda: build_experiment(cfg, synthetic=True, limit_per_client=2),
+        "EpochBatcher": lambda: EpochBatcher(split, 2, 3, "odoc"),
+        "evaluate_client": lambda: evaluate_client(
+            model, {k: v for k, v in sd.items() if k in names},
+            {k: v for k, v in sd.items() if k not in names},
+            split.images, split.labels.astype(np.int64), 3),
+    }
+
+
+@pytest.mark.parametrize(
+    "entry", ["make_round_fn", "init_client_state", "build_experiment", "EpochBatcher", "evaluate_client"]
+)
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model, calls = _entry_calls()
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        getattr(trainer, entry)(model, cfg)
+        calls[entry]()
     assert next(model.parameters()).device.type == "cpu"

@@ -11,6 +11,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from fedicra_torch.convert import flax_to_state_dict, state_dict_to_flax
@@ -22,6 +23,21 @@ from fedicra_tpu.models import net_factory
 NO_DROPOUT = (0.0,) * 5
 IMG = 32
 BATCH = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's tests on one torch thread, as autouse where imported.
+
+    These tests issue many small ops. With pytest-xdist workers side by side,
+    each with a thread per core, the workers' OpenMP teams oversubscribe the
+    cores and every parallel region waits on descheduled threads: two such
+    files that take ~45 s each alone took more than 400 s side by side, and
+    ~50-65 s with one thread each."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def configs(img_size=IMG, **kw):
