@@ -30,21 +30,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
 8. the federation: build_experiment and FederatedServer.run for 2 rounds
    of FedICRA "ours" at the same width, 5 clients on synthetic ODOC data,
    ALA's first-run loop in round 2, the evaluation, checkpoints and a
-   resume (``phase_federation``).
+   resume (``phase_federation``);
+9. the user's entry points, in-process in a temporary directory
+   (``phase_cli``): the federated train CLI (1 round of "ours" at the same
+   width), the test CLI's loader, inference, CSVs and PNGs on phase 8's
+   snapshot,
+   the centralized ``unet`` baseline at 256^2 (again inside a profiler
+   trace), and the runner at its own defaults (FAZ, ``unet``, FedAvg, pCE).
 
-Each path (3's loss, 6, 7, 8) runs with the launch counters set to 0 just
-before it and read just after. The last lines are the card's name and power
+Each path (3's loss, 6, 7, 8, and each route of 9) runs with the launch
+counters set to 0 just before it and read just after. The last lines are the card's name and power
 limit, one JSON line of per-kernel numbers, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -675,173 +685,352 @@ def federation_config(img: int = IMG, batch: int = BATCH):
     )
 
 
-def phase_federation(dev, img: int = IMG, batch: int = BATCH, limit: int = 12) -> None:
+def phase_federation(dev, snap: str, img: int = IMG, batch: int = BATCH, limit: int = 12) -> None:
     """Two federated rounds through build_experiment and FederatedServer.run.
 
     Round 1 (iteration 2): every client adopts the global weights (they equal
     its own), trains 2 steps; the server averages. Round 2 (iteration 4):
     each client's ALA merge runs its first-run loop (>= 11 epochs), it trains,
     and the evaluation merges once more (1 epoch) and validates. Then a fresh
-    experiment on the same snapshot directory resumes from it."""
-    import tempfile
-
+    experiment on the same snapshot directory resumes from it. The
+    snapshot directory ``snap`` is the caller's."""
     from fedicra_torch.federation import build_experiment
     from fedicra_torch.models.params_filters import is_ala_gated
     from fedicra_torch.ops import gated_crf_cuda, tree_filter
 
     cfg = federation_config(img, batch)
-    with tempfile.TemporaryDirectory(prefix="fedicra_smoke_") as snap:
-        server = build_experiment(cfg, synthetic=True, limit_per_client=limit, snapshot_dir=snap,
-                                  device=dev)
-        log(f"[federation] {cfg.num_clients} clients, {img}^2 x {cfg.in_chns}, batch {batch}, "
-            f"train/val images per client {len(server.clients[0].batcher.split)}/"
-            f"{len(server.clients[0].val_split)}; iters {cfg.iters} (rep {cfg.rep_iters}), "
-            f"eval_iters {cfg.eval_iters}, ala_skip_iters {cfg.ala_skip_iters}")
-        fits, evals = [], []  # per call: (iteration, cid, seconds, ALA report[, FitRes])
+    server = build_experiment(cfg, synthetic=True, limit_per_client=limit, snapshot_dir=snap,
+                              device=dev)
+    log(f"[federation] {cfg.num_clients} clients, {img}^2 x {cfg.in_chns}, batch {batch}, "
+        f"train/val images per client {len(server.clients[0].batcher.split)}/"
+        f"{len(server.clients[0].val_split)}; iters {cfg.iters} (rep {cfg.rep_iters}), "
+        f"eval_iters {cfg.eval_iters}, ala_skip_iters {cfg.ala_skip_iters}")
+    fits, evals = [], []  # per call: (iteration, cid, seconds, ALA report[, FitRes])
 
-        def synced(fn):
-            if torch.cuda.is_available():
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            if torch.cuda.is_available():
-                torch.cuda.synchronize()
-            return out, time.perf_counter() - t0
-
-        for c in server.clients:
-            def fit(ins, _c=c, _fit=c.fit):
-                res, dt = synced(lambda: _fit(ins))
-                fits.append((ins.config["iter_global"], _c.cid, dt, dict(_c.ala_report), res))
-                return res
-
-            def evaluate(ins, _c=c, _evaluate=c.evaluate):
-                res, dt = synced(lambda: _evaluate(ins))
-                evals.append((ins.config["iter_global"], _c.cid, dt, dict(_c.ala_report)))
-                return res
-
-            c.fit, c.evaluate = fit, evaluate
-
+    def synced(fn):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        gated_crf_cuda.reset_launches()
-        tree_filter.reset_calls()
-        history, wall = synced(lambda: server.run(num_rounds=2 * cfg.iters, progress=False))
-        launches, calls = dict(gated_crf_cuda.launches), dict(tree_filter.calls)
-
-        for rec in history:
-            log(f"[federation] round at iteration {rec['round']}: {rec['round_duration']:.3f} s; "
-                f"total_loss per client {[round(rec[f'client_{c}_total_loss'], 6) for c in range(5)]}")
-        log(f"[federation] run {wall:.3f} s")
-        for it, cid, dt, rep, _ in fits:
-            ala = (f"ALA {rep['epochs']} epochs in {rep['seconds']:.3f} s, gate mean "
-                   f"{rep['gate_mean']:.6f}" if rep else "ALA skipped")
-            log(f"[federation] fit iteration {it} client {cid}: {dt:.3f} s ({ala})")
-        for it, cid, dt, rep in evals:
-            ala = (f"ALA {rep['epochs']} epoch(s) in {rep['seconds']:.3f} s, gate mean "
-                   f"{rep['gate_mean']:.6f}" if rep else "ALA skipped")
-            log(f"[federation] evaluate iteration {it} client {cid}: {dt:.3f} s ({ala})")
-        # the run's wall time by activity: local training (fit less its ALA),
-        # ALA (in fit and evaluate), evaluation (evaluate less its ALA), and
-        # the rest (aggregation, logging, checkpoints)
-        reps = [f[3] for f in fits] + [e[3] for e in evals]
-        ala_fit = sum(f[3].get("seconds", 0.0) for f in fits)
-        ala_eval = sum(e[3].get("seconds", 0.0) for e in evals)
-        epochs = sum(rep.get("epochs", 0) for rep in reps)
-        parts = {"local training": sum(f[2] for f in fits) - ala_fit, "ALA": ala_fit + ala_eval,
-                 "evaluation": sum(e[2] for e in evals) - ala_eval}
-        parts["other"] = wall - sum(parts.values())
-        log("[federation] share of the run: " + ", ".join(
-            f"{k} {v:.3f} s ({100 * v / wall:.2f}%)" for k, v in parts.items())
-            + f"; ALA {epochs} epochs, {1000 * parts['ALA'] / max(epochs, 1):.1f} ms each")
-        final = history[-1]
-        for c in range(5):
-            log(f"[federation] client {c}: val_mean_dice {final[f'client_{c}_val_mean_dice']:.6f} "
-                f"val_mean_hd95 {final[f'client_{c}_val_mean_hd95']:.6f}")
-        log(f"[federation] aggregate: val_mean_dice {final['val_mean_dice']:.6f} "
-            f"val_mean_hd95 {final['val_mean_hd95']:.6f} (by val size), val_avg_mean_dice "
-            f"{final['val_avg_mean_dice']:.6f}")
+        t0 = time.perf_counter()
+        out = fn()
         if torch.cuda.is_available():
-            log(f"[federation] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-        log(f"[federation] kernel launches {launches}; tree filter runs {calls}")
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
 
-        # ALA: skipped in round 1, the first-run loop in round 2's fit, one
-        # epoch at its evaluate
-        for it, cid, _, rep, _ in fits:
-            if it == cfg.iters and rep:
-                raise AssertionError(f"client {cid}: ALA ran in round 1 ({rep['epochs']} epochs)")
-            if it == 2 * cfg.iters and not (rep and 11 <= rep["epochs"] <= 50):
-                raise AssertionError(f"client {cid}: round 2's fit ran ALA {rep.get('epochs')} epochs")
-        epochs = [(it, rep.get("epochs")) for it, _, _, rep in evals]
-        if epochs != [(2 * cfg.iters, 1)] * 5:
-            raise AssertionError(f"evaluate's ALA epochs by iteration {epochs}")
-        if [c.start_phase for c in server.clients] != [False] * 5:
-            raise AssertionError("start_phase still set after ALA's first run")
+    for c in server.clients:
+        def fit(ins, _c=c, _fit=c.fit):
+            res, dt = synced(lambda: _fit(ins))
+            fits.append((ins.config["iter_global"], _c.cid, dt, dict(_c.ala_report), res))
+            return res
 
-        # the global payload is the weighted mean of round 2's fit payloads,
-        # recomputed here in float64
-        last = [f for f in fits if f[0] == 2 * cfg.iters]
-        weights = torch.tensor([float(f[4].num_examples) for f in last], dtype=torch.float64)
-        weights /= weights.sum()
-        for part, tree in server.global_payload.items():
-            for name, got in tree.items():
-                want = sum(w * f[4].payload[part][name].double() for w, f in zip(weights, last))
-                torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=1e-7)
+        def evaluate(ins, _c=c, _evaluate=c.evaluate):
+            res, dt = synced(lambda: _evaluate(ins))
+            evals.append((ins.config["iter_global"], _c.cid, dt, dict(_c.ala_report)))
+            return res
 
-        # the evaluated clients: global weights below, gated ones between
-        # the global and the client's own fit result
-        glob = server.global_payload["params"]
-        for c, (*_, res) in zip(server.clients, last):
-            for name, value in c.state.params.items():
-                if not is_ala_gated(name):
-                    if not torch.equal(value, glob[name]):
-                        raise AssertionError(f"client {c.cid}: non-gated {name} is not the global value")
-                    continue
-                own = res.payload["params"][name]
-                lo, hi = torch.minimum(glob[name], own), torch.maximum(glob[name], own)
-                if not ((value >= lo - 1e-6) & (value <= hi + 1e-6)).all():
-                    raise AssertionError(f"client {c.cid}: gated {name} outside [global, local]")
+        c.fit, c.evaluate = fit, evaluate
 
-        nonfinite = {k: v for k, v in final.items()
-                     if isinstance(v, float) and "val_" in k and not math.isfinite(v)}
-        log(f"[federation] non-finite metrics: {len(nonfinite)} {sorted(nonfinite)}")
-        if any("hd95" not in k for k in nonfinite):
-            raise AssertionError(f"non-finite metrics besides hd95: {nonfinite}")
-        for rec in history:
-            for k, v in rec.items():
-                if "loss" in k and isinstance(v, float) and not math.isfinite(v):
-                    raise AssertionError(f"{k} = {v}")
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    gated_crf_cuda.reset_launches()
+    tree_filter.reset_calls()
+    history, wall = synced(lambda: server.run(num_rounds=2 * cfg.iters, progress=False))
+    launches, calls = dict(gated_crf_cuda.launches), dict(tree_filter.calls)
 
-        # a client writes best_client_{cid} when its own val_mean_dice beats
-        # 0 (the reference's rule), the server best_global when the weighted
-        # mean does; at least one client must have written its own
-        wrote = {n: os.path.exists(os.path.join(snap, n))
-                 for n in ["metrics.jsonl", "best_global"] + [f"best_client_{c}" for c in range(5)]}
-        log(f"[federation] snapshot files {wrote}")
-        expect = {"metrics.jsonl": True, "best_global": final["val_mean_dice"] > 0,
-                  **{f"best_client_{c}": final[f"client_{c}_val_mean_dice"] > 0 for c in range(5)}}
-        if wrote != expect or not any(wrote[f"best_client_{c}"] for c in range(5)):
-            raise AssertionError(f"snapshot files {wrote}, expected {expect}")
+    for rec in history:
+        log(f"[federation] round at iteration {rec['round']}: {rec['round_duration']:.3f} s; "
+            f"total_loss per client {[round(rec[f'client_{c}_total_loss'], 6) for c in range(5)]}")
+    log(f"[federation] run {wall:.3f} s")
+    for it, cid, dt, rep, _ in fits:
+        ala = (f"ALA {rep['epochs']} epochs in {rep['seconds']:.3f} s, gate mean "
+               f"{rep['gate_mean']:.6f}" if rep else "ALA skipped")
+        log(f"[federation] fit iteration {it} client {cid}: {dt:.3f} s ({ala})")
+    for it, cid, dt, rep in evals:
+        ala = (f"ALA {rep['epochs']} epoch(s) in {rep['seconds']:.3f} s, gate mean "
+               f"{rep['gate_mean']:.6f}" if rep else "ALA skipped")
+        log(f"[federation] evaluate iteration {it} client {cid}: {dt:.3f} s ({ala})")
+    # the run's wall time by activity: local training (fit less its ALA),
+    # ALA (in fit and evaluate), evaluation (evaluate less its ALA), and
+    # the rest (aggregation, logging, checkpoints)
+    reps = [f[3] for f in fits] + [e[3] for e in evals]
+    ala_fit = sum(f[3].get("seconds", 0.0) for f in fits)
+    ala_eval = sum(e[3].get("seconds", 0.0) for e in evals)
+    epochs = sum(rep.get("epochs", 0) for rep in reps)
+    parts = {"local training": sum(f[2] for f in fits) - ala_fit, "ALA": ala_fit + ala_eval,
+             "evaluation": sum(e[2] for e in evals) - ala_eval}
+    parts["other"] = wall - sum(parts.values())
+    log("[federation] share of the run: " + ", ".join(
+        f"{k} {v:.3f} s ({100 * v / wall:.2f}%)" for k, v in parts.items())
+        + f"; ALA {epochs} epochs, {1000 * parts['ALA'] / max(epochs, 1):.1f} ms each")
+    final = history[-1]
+    for c in range(5):
+        log(f"[federation] client {c}: val_mean_dice {final[f'client_{c}_val_mean_dice']:.6f} "
+            f"val_mean_hd95 {final[f'client_{c}_val_mean_hd95']:.6f}")
+    log(f"[federation] aggregate: val_mean_dice {final['val_mean_dice']:.6f} "
+        f"val_mean_hd95 {final['val_mean_hd95']:.6f} (by val size), val_avg_mean_dice "
+        f"{final['val_avg_mean_dice']:.6f}")
+    if torch.cuda.is_available():
+        log(f"[federation] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[federation] kernel launches {launches}; tree filter runs {calls}")
 
-        server.ckpt.save_resume(server._resume_state())
-        again = build_experiment(cfg, synthetic=True, limit_per_client=limit, snapshot_dir=snap,
-                                 device=dev)
-        if not again.try_resume() or again.current_round != server.current_round:
-            raise AssertionError(f"resume: round {again.current_round} vs {server.current_round}")
-        for a, b in zip(again.clients, server.clients):
-            if a.start_phase != b.start_phase or a.state.current_iter != b.state.current_iter:
-                raise AssertionError(f"resume: client {a.cid}'s start_phase or iteration differs")
-            if not all(torch.equal(a.state.params[k], v) for k, v in b.state.params.items()):
-                raise AssertionError(f"resume: client {a.cid}'s weights differ")
-        log(f"[federation] resumed at iteration {again.current_round}; start_phase "
-            f"{[c.start_phase for c in again.clients]}")
+    # ALA: skipped in round 1, the first-run loop in round 2's fit, one
+    # epoch at its evaluate
+    for it, cid, _, rep, _ in fits:
+        if it == cfg.iters and rep:
+            raise AssertionError(f"client {cid}: ALA ran in round 1 ({rep['epochs']} epochs)")
+        if it == 2 * cfg.iters and not (rep and 11 <= rep["epochs"] <= 50):
+            raise AssertionError(f"client {cid}: round 2's fit ran ALA {rep.get('epochs')} epochs")
+    epochs = [(it, rep.get("epochs")) for it, _, _, rep in evals]
+    if epochs != [(2 * cfg.iters, 1)] * 5:
+        raise AssertionError(f"evaluate's ALA epochs by iteration {epochs}")
+    if [c.start_phase for c in server.clients] != [False] * 5:
+        raise AssertionError("start_phase still set after ALA's first run")
 
-        n_steps = cfg.num_clients * 2 * cfg.iters
-        if launches != {"gated_crf": n_steps}:
-            raise AssertionError(f"expected {n_steps} gated-CRF launches, got {launches}")
-        if calls != {"tree_filter_fwd": 4 * n_steps, "tree_filter_bwd": 4 * n_steps}:
-            raise AssertionError(f"expected {4 * n_steps} tree filter forwards and backwards, got {calls}")
-        del server, again
+    # the global payload is the weighted mean of round 2's fit payloads,
+    # recomputed here in float64
+    last = [f for f in fits if f[0] == 2 * cfg.iters]
+    weights = torch.tensor([float(f[4].num_examples) for f in last], dtype=torch.float64)
+    weights /= weights.sum()
+    for part, tree in server.global_payload.items():
+        for name, got in tree.items():
+            want = sum(w * f[4].payload[part][name].double() for w, f in zip(weights, last))
+            torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=1e-7)
+
+    # the evaluated clients: global weights below, gated ones between
+    # the global and the client's own fit result
+    glob = server.global_payload["params"]
+    for c, (*_, res) in zip(server.clients, last):
+        for name, value in c.state.params.items():
+            if not is_ala_gated(name):
+                if not torch.equal(value, glob[name]):
+                    raise AssertionError(f"client {c.cid}: non-gated {name} is not the global value")
+                continue
+            own = res.payload["params"][name]
+            lo, hi = torch.minimum(glob[name], own), torch.maximum(glob[name], own)
+            if not ((value >= lo - 1e-6) & (value <= hi + 1e-6)).all():
+                raise AssertionError(f"client {c.cid}: gated {name} outside [global, local]")
+
+    nonfinite = {k: v for k, v in final.items()
+                 if isinstance(v, float) and "val_" in k and not math.isfinite(v)}
+    log(f"[federation] non-finite metrics: {len(nonfinite)} {sorted(nonfinite)}")
+    if any("hd95" not in k for k in nonfinite):
+        raise AssertionError(f"non-finite metrics besides hd95: {nonfinite}")
+    for rec in history:
+        for k, v in rec.items():
+            if "loss" in k and isinstance(v, float) and not math.isfinite(v):
+                raise AssertionError(f"{k} = {v}")
+
+    # a client writes best_client_{cid} when its own val_mean_dice beats
+    # 0 (the reference's rule), the server best_global when the weighted
+    # mean does; at least one client must have written its own
+    wrote = {n: os.path.exists(os.path.join(snap, n))
+             for n in ["metrics.jsonl", "best_global"] + [f"best_client_{c}" for c in range(5)]}
+    log(f"[federation] snapshot files {wrote}")
+    expect = {"metrics.jsonl": True, "best_global": final["val_mean_dice"] > 0,
+              **{f"best_client_{c}": final[f"client_{c}_val_mean_dice"] > 0 for c in range(5)}}
+    if wrote != expect or not any(wrote[f"best_client_{c}"] for c in range(5)):
+        raise AssertionError(f"snapshot files {wrote}, expected {expect}")
+
+    server.ckpt.save_resume(server._resume_state())
+    again = build_experiment(cfg, synthetic=True, limit_per_client=limit, snapshot_dir=snap,
+                             device=dev)
+    if not again.try_resume() or again.current_round != server.current_round:
+        raise AssertionError(f"resume: round {again.current_round} vs {server.current_round}")
+    for a, b in zip(again.clients, server.clients):
+        if a.start_phase != b.start_phase or a.state.current_iter != b.state.current_iter:
+            raise AssertionError(f"resume: client {a.cid}'s start_phase or iteration differs")
+        if not all(torch.equal(a.state.params[k], v) for k, v in b.state.params.items()):
+            raise AssertionError(f"resume: client {a.cid}'s weights differ")
+    log(f"[federation] resumed at iteration {again.current_round}; start_phase "
+        f"{[c.start_phase for c in again.clients]}")
+
+    n_steps = cfg.num_clients * 2 * cfg.iters
+    if launches != {"gated_crf": n_steps}:
+        raise AssertionError(f"expected {n_steps} gated-CRF launches, got {launches}")
+    if calls != {"tree_filter_fwd": 4 * n_steps, "tree_filter_bwd": 4 * n_steps}:
+        raise AssertionError(f"expected {4 * n_steps} tree filter forwards and backwards, got {calls}")
+    del server, again
+
+
+def _kernel_counts() -> dict:
+    from fedicra_torch.ops import gated_crf_cuda, gaussian_filter_cuda, tree_filter
+
+    return {**gated_crf_cuda.launches, **gaussian_filter_cuda.launches, **tree_filter.calls}
+
+
+def _reset_kernel_counts() -> None:
+    from fedicra_torch.ops import gated_crf_cuda, gaussian_filter_cuda, tree_filter
+
+    gated_crf_cuda.reset_launches()
+    gaussian_filter_cuda.reset_launches()
+    tree_filter.reset_calls()
+
+
+def phase_cli(dev, fed_snapshot: str, img: int = IMG, batch: int = BATCH,
+              faz_img: int = 256) -> None:
+    """The CLIs as a user runs them, in-process in a temporary directory.
+
+    ``fed_snapshot`` is ``phase_federation``'s snapshot directory, which the
+    test CLI's route reads. Each route runs with the launch counters set to 0 just before it and
+    read just after, timed by the port's StepTimer (card synchronised); what
+    the CLIs print is captured, and their last line is checked to be the
+    JSON they return."""
+    from fedicra_torch.cli import runner as runner_cli
+    from fedicra_torch.cli import test as test_cli
+    from fedicra_torch.cli import train as train_cli
+    from fedicra_torch.data import make_synthetic_split
+    from fedicra_torch.models import net_factory
+    from fedicra_torch.utils.profiling import StepTimer, annotate, trace
+
+    timer = StepTimer()
+    zero = {"gated_crf": 0, "gaussian_filter": 0, "tree_filter_fwd": 0, "tree_filter_bwd": 0}
+
+    def route(name, fn):
+        """(result, printed lines, kernel counts, seconds, peak GiB) of one route."""
+        _reset_kernel_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), timer.time(name, block_on=dev):
+            result = fn()
+        seconds = timer.summary()[name]["total_s"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = _kernel_counts()
+        log(f"[cli] {name}: {seconds:.3f} s; max_memory_allocated {peak:.3f} GiB; "
+            f"kernel launches {counts}")
+        return result, out.getvalue().splitlines(), counts, seconds
+
+    def printed_json(lines, result, name):
+        if not lines or json.loads(lines[-1]) != json.loads(json.dumps(result)):
+            raise AssertionError(f"{name}: last printed line is not the returned JSON")
+
+    def finite_losses(final: dict, name: str, clients: int):
+        losses = [final[f"client_{c}_total_loss"] for c in range(clients)]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name}: non-finite losses {losses}")
+        log(f"[cli] {name}: total_loss per client {[round(v, 6) for v in losses]}")
+
+    with tempfile.TemporaryDirectory(prefix="fedicra_cli_") as tmp:
+        # 1. the federated train CLI: 1 round of 5 full-width clients, 2 steps each
+        snap_root = os.path.join(tmp, "model")
+        fed_argv = ["--synthetic", "--img_class", "odoc", "--strategy", "FedICRA",
+                    "--procedure", "ours", "--model", "unet_lc_multihead", "--img_size", str(img),
+                    "--batch_size", str(batch),
+                    "--iters", "2", "--rep_iters", "1", "--eval_iters", "2", "--stop_after", "2",
+                    "--limit_per_client", "12", "--snapshot_root", snap_root, "--exp", "fed"]
+        result, lines, counts, seconds = route("cli.train federated", lambda: train_cli.main(fed_argv))
+        printed_json(lines, result, "cli.train federated")
+        steps = 5 * 2
+        log(f"[cli] cli.train federated: {seconds / steps:.3f} s per local step (wall / {steps}, "
+            f"data, evaluation and checkpoints included); best_dice {result['best_dice']:.6f}")
+        finite_losses(result["final"], "cli.train federated", 5)
+        want = {**zero, "gated_crf": steps, "tree_filter_fwd": 4 * steps, "tree_filter_bwd": 4 * steps}
+        if counts != want:
+            raise AssertionError(f"cli.train federated: launches {counts}, expected {want}")
+        # best_global is written when the weighted val dice beats 0 (the
+        # reference's rule); after 1 round from random weights it may not
+        wrote = os.path.exists(os.path.join(snap_root, "fed", "best_global"))
+        if wrote != (result["best_dice"] > 0):
+            raise AssertionError(f"best_global written {wrote}, best_dice {result['best_dice']}")
+
+        # 2. the test CLI's route on the federation phase's snapshot (2 rounds
+        #    with ALA, where some clients beat dice 0 and wrote their own
+        #    best); the card has no h5py, so the cases are client 0's
+        #    synthetic val split, as that run made it
+        snap = fed_snapshot
+        split = make_synthetic_split(4, img, img, 3, 3, seed=100, sparse=False)
+        model = net_factory("unet_lc_multihead", in_chns=3, class_num=3, num_clients=5).to(dev)
+        out_dir = os.path.join(snap_root, "fed_test", "client0")
+        expect = "best_client_0" if os.path.exists(os.path.join(snap, "best_client_0")) else "best_global"
+
+        def test_route():
+            payload, source = test_cli.load_test_weights(snap, "client0", dev)
+            rows = test_cli.run_inference(
+                model, payload["params"], payload["batch_stats"], split.images, split.case_names,
+                split.labels, "odoc", out_dir, emb_idx=0, device=dev)
+            test_cli.write_csvs(rows, out_dir)
+            return source, rows
+
+        (source, rows), _, counts, seconds = route("cli.test inference", test_route)
+        log(f"[cli] cli.test inference: loaded {source}; {seconds / len(split) * 1e3:.3f} ms per "
+            f"inferred case ({len(split)} cases, metrics and PNGs included); mean dice_cup "
+            f"{np.mean(rows['dice_cup']):.6f} dice_disc {np.mean(rows['dice_disc']):.6f}")
+        if source != expect:
+            raise AssertionError(f"loaded {source}, expected {expect} by the own-best rule")
+        metrics = [f"{m}{g}" for g in ("_cup", "_disc")
+                   for m in ("dice", "jaccard", "HD95", "ASSD", "SE", "SP", "Rec", "Pre")]
+        if list(rows) != ["name"] + metrics or any(len(v) != len(split) for v in rows.values()):
+            raise AssertionError(f"test CLI columns {list(rows)}")
+        if not all(math.isfinite(v) for k in metrics for v in rows[k]):
+            raise AssertionError("non-finite test metrics")
+        if counts != zero:
+            raise AssertionError(f"cli.test launched custom kernels: {counts}")
+        with open(os.path.join(out_dir, "result.csv")) as f:
+            if f.readline().strip().split(",") != list(rows):
+                raise AssertionError("result.csv header")
+        pngs = sorted(os.listdir(os.path.join(out_dir, "pre")))
+        if len(pngs) != 2 * len(split) or not os.path.exists(os.path.join(out_dir, "mean_std_result.csv")):
+            raise AssertionError(f"test CLI outputs {pngs}")
+        for name in pngs:
+            with open(os.path.join(out_dir, "pre", name), "rb") as f:
+                head = f.read(24)
+            if head[:8] != test_cli.PNG_SIGNATURE or head[12:16] != b"IHDR" or \
+                    struct.unpack(">II", head[16:24]) != (img, img):
+                raise AssertionError(f"{name} is not a {img}x{img} PNG")
+
+        # 3. the centralized unet baseline at 256^2, then again inside a trace
+        cen_argv = ["--centralized", "--synthetic", "--img_class", "faz", "--model", "unet",
+                    "--max_iterations", "4", "--eval_iters", "2", "--limit_per_client", "24",
+                    "--img_size", str(faz_img), "--batch_size", str(batch),
+                    "--snapshot_root", snap_root, "--exp", "central"]
+        trace_dir = os.path.join(tmp, "trace")
+
+        def traced():
+            with trace(trace_dir), annotate("cli.centralized"):
+                return train_cli.main(cen_argv)
+
+        for name, fn in (("cli.train centralized", lambda: train_cli.main(cen_argv)),
+                         ("cli.train centralized traced", traced)):
+            rec, lines, counts, seconds = route(name, fn)
+            printed_json(lines, rec, name)
+            log(f"[cli] {name}: {seconds / 4:.3f} s per step (wall / 4, 2 evaluations included); "
+                f"loss {rec['loss']:.6f} mean_dice {rec['mean_dice']:.6f}")
+            if rec["iter"] != 4 or not math.isfinite(rec["loss"]):
+                raise AssertionError(f"{name}: record {rec}")
+            if counts != zero:
+                raise AssertionError(f"{name} launched custom kernels: {counts}")
+        traces = [os.path.join(trace_dir, n) for n in os.listdir(trace_dir)]
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        log(f"[cli] trace {os.path.basename(traces[0])}: {len(events)} events, {kernels} kernels")
+        if len(traces) != 1 or not any(e.get("name") == "cli.centralized" for e in events):
+            raise AssertionError("the trace lacks the cli.centralized span")
+
+        # 4. the runner at its own defaults (FAZ, unet, FedAvg, pCE, 256^2,
+        #    batch 12), from a working directory whose ../model and ../data
+        #    lie inside the temporary directory
+        sizes = [] if (faz_img, batch) == (256, 12) else [
+            "--img_size", str(faz_img), "--batch_size", str(batch)]
+        run_dir = os.path.join(tmp, "run")
+        os.makedirs(run_dir)
+        cwd = os.getcwd()
+        os.chdir(run_dir)
+        try:
+            result, lines, counts, seconds = route("cli.runner", lambda: runner_cli.main(
+                ["--procedure", "flower_pCE_2D", "--exp", "smoke", "--synthetic",
+                 "--max_iterations", "2", "--iters", "2"] + sizes))
+        finally:
+            os.chdir(cwd)
+        printed_json(lines, result, "cli.runner")
+        log(f"[cli] cli.runner: {seconds / steps:.3f} s per local step (wall / {steps}, data "
+            "included)")
+        finite_losses(result["final"], "cli.runner", 5)
+        if counts != zero:
+            raise AssertionError(f"cli.runner launched custom kernels: {counts}")
+        if not os.path.exists(os.path.join(tmp, "model", "smoke", "metrics.jsonl")):
+            raise AssertionError("the runner wrote no ../model/smoke/metrics.jsonl")
+    log("[cli] " + "; ".join(f"{k} {v['total_s']:.3f} s" for k, v in timer.summary().items()))
 
 
 def card_name_and_power() -> str:
@@ -878,7 +1067,11 @@ def main() -> int:
     gated_row["launches"] = launches["gated_crf"]
     rows = [gated_row, gaussian_row]
     torch.cuda.empty_cache()
-    phase_federation(dev)
+    with tempfile.TemporaryDirectory(prefix="fedicra_smoke_") as tmp:
+        fed_snapshot = os.path.join(tmp, "federation")
+        phase_federation(dev, fed_snapshot)
+        torch.cuda.empty_cache()
+        phase_cli(dev, fed_snapshot)
 
     print(card_name_and_power())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -8,7 +8,7 @@ with loss_lc = -(1/(K-1)) sum_{k != cid} MSE(own bottleneck PCS heatmap,
 heatmap under client k's embedding, no gradient). At ``tree_loss_weight``
 0 the tree term is skipped, as in the JAX package.
 
-"pce": loss = pCE (+ alpha * loss_lc under FedICRA).
+"pce": loss = pCE (+ alpha * loss_lc under FedICRA with an LC model).
 
 "treeenergy_add": loss = pCE + MScaleAdd tree energy.
 
@@ -26,6 +26,7 @@ import torch
 from ..losses.gated_crf import gated_crf_loss_auto
 from ..losses.partial import partial_cross_entropy
 from ..losses.tree_energy import multi_scale_tree_energy_loss
+from ..models.factory import LC_MODELS
 from .config import TrainConfig
 
 
@@ -58,7 +59,10 @@ def _contrast_loss(
     return -total / (K - 1)
 
 
-def _forward(model, images, cid, generator):
+def _forward(model, images, cid, cfg: TrainConfig, generator):
+    """The train-mode forward; only an LC model is given the client's embedding."""
+    if cfg.model not in LC_MODELS:
+        return model(images, generator=generator)
     emb = torch.full((images.shape[0],), cid, dtype=torch.long, device=images.device)
     return model(images, emb_idx=emb, generator=generator)
 
@@ -84,7 +88,7 @@ def ours_loss(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The FedICRA "Ours" objective; NHWC batch."""
     images, labels = batch["image"], batch["label"]
-    out = _forward(model, images, cid, generator)
+    out = _forward(model, images, cid, cfg, generator)
     logits = out["logits"]
     probs = torch.softmax(logits, dim=-1)
 
@@ -117,13 +121,14 @@ def pce_loss(
     cfg: TrainConfig,
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """pCE-only objective, + the contrast term under FedICRA; NHWC batch."""
+    """pCE-only objective, + the contrast term under FedICRA with an LC
+    model; NHWC batch."""
     images, labels = batch["image"], batch["label"]
-    out = _forward(model, images, cid, generator)
+    out = _forward(model, images, cid, cfg, generator)
     loss_ce = partial_cross_entropy(out["logits"], labels, cfg.num_classes)
     loss = loss_ce
     metrics = {"loss_ce": loss_ce}
-    if cfg.fedicra:
+    if cfg.fedicra and cfg.model in LC_MODELS:
         loss_lc = _contrast_loss(model, images, out["heatmaps"][-1], cid, cfg, generator)
         loss = loss + cfg.alpha * loss_lc
         metrics["loss_lc"] = loss_lc
@@ -140,7 +145,7 @@ def treeenergy_add_loss(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """pCE + the additive multi-scale tree term (no contrast term); NHWC batch."""
     images, labels = batch["image"], batch["label"]
-    out = _forward(model, images, cid, generator)
+    out = _forward(model, images, cid, cfg, generator)
     loss_ce = partial_cross_entropy(out["logits"], labels, cfg.num_classes)
     loss_tree = _tree_loss(out, images, labels, cfg, recursive=False)
     loss = loss_ce + loss_tree

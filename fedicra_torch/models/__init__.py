@@ -1,4 +1,4 @@
-from .factory import MODEL_TYPES, net_factory
+from .factory import LC_MODELS, MODEL_TYPES, net_factory
 from .unet import UNetLCMultiHead
 
-__all__ = ["MODEL_TYPES", "UNetLCMultiHead", "net_factory"]
+__all__ = ["LC_MODELS", "MODEL_TYPES", "UNetLCMultiHead", "net_factory"]

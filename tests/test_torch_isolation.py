@@ -38,15 +38,18 @@ def test_port_files_were_found():
 
 def test_port_files_include_every_package_of_the_port():
     found = {p.parent.name for p in PORT_FILES}
-    assert {"federation", "data", "evaluation", "utils", "engine", "ops"} <= found
+    assert {"federation", "data", "evaluation", "utils", "engine", "ops", "cli", "models"} <= found
 
 
-def _entry_calls():
+def _entry_calls(tmp_path):
     """Each entry point of the port, called as a user would, without ``device``."""
     import numpy as np
 
+    from fedicra_torch.cli import test as test_cli
+    from fedicra_torch.cli import train as train_cli
     from fedicra_torch.data import EpochBatcher, make_synthetic_split
     from fedicra_torch.engine import trainer
+    from fedicra_torch.engine.centralized import train_centralized
     from fedicra_torch.engine.config import TrainConfig
     from fedicra_torch.evaluation import evaluate_client
     from fedicra_torch.federation import build_experiment
@@ -66,15 +69,23 @@ def _entry_calls():
             model, {k: v for k, v in sd.items() if k in names},
             {k: v for k, v in sd.items() if k not in names},
             split.images, split.labels.astype(np.int64), 3),
+        "train_centralized": lambda: train_centralized(
+            model, cfg.replace(strategy="FedAvg", procedure="pce"), split, split, max_iterations=1),
+        "cli.train": lambda: train_cli.main(
+            ["--synthetic", "--img_size", "32", "--batch_size", "2", "--limit_per_client", "2",
+             "--snapshot_root", str(tmp_path)]),
+        "cli.test.load_test_weights": lambda: test_cli.load_test_weights(
+            str(tmp_path / "exp"), "client0"),
     }
 
 
 @pytest.mark.parametrize(
-    "entry", ["make_round_fn", "init_client_state", "build_experiment", "EpochBatcher", "evaluate_client"]
+    "entry", ["make_round_fn", "init_client_state", "build_experiment", "EpochBatcher",
+              "evaluate_client", "train_centralized", "cli.train", "cli.test.load_test_weights"]
 )
-def test_entry_points_default_to_the_card(monkeypatch, entry):
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    model, calls = _entry_calls()
+    model, calls = _entry_calls(tmp_path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
     assert next(model.parameters()).device.type == "cpu"
