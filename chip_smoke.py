@@ -36,10 +36,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    width), the test CLI's loader, inference, CSVs and PNGs on phase 8's
    snapshot,
    the centralized ``unet`` baseline at 256^2 (again inside a profiler
-   trace), and the runner at its own defaults (FAZ, ``unet``, FedAvg, pCE).
+   trace), and the runner at its own defaults (FAZ, ``unet``, FedAvg, pCE);
+10. the main path under mixed precision (``[main-amp]``, after 7): the same
+   round with ``amp=True``, its gated-CRF launches on bf16 probabilities, the
+   dtypes of one step's forward and BatchNorm inputs, and its first loss
+   against 7's (2 also checks the kernel's bf16 entry against an fp32 launch
+   on the widened input, bit for bit);
+11. the last two model types through the train CLI (``[models]``): ``pnet``
+   under ``--amp 1`` and ``efficient_unet`` under ``--amp 1`` with a B3
+   ``--encoder_weights`` file, 1 round of 5 full-width ODOC clients, pCE.
 
-Each path (3's loss, 6, 7, 8, and each route of 9) runs with the launch
-counters set to 0 just before it and read just after. The last lines are the card's name and power
+Each path (3's loss, 6, 7, 8, each route of 9 and 11, and 10) runs with the
+launch counters set to 0 just before it and read just after. The last lines are the card's name and power
 limit, one JSON line of per-kernel numbers, and {"ok": true, "device": {...}}.
 """
 
@@ -252,10 +260,39 @@ def phase_gated_crf(dev):
         errs += [loss_err, acc_err]
         del acc_k, acc_p, y_auto
 
+    # the bf16 entry (AMP): a launch on bf16 y gives the loss and acc of an
+    # fp32 launch on the widened y bit for bit; dy is the fp32 dy rounded
+    for tag, y in inputs.items():
+        y16 = y.to(torch.bfloat16)
+        loss16, acc16 = g.gated_crf_fused_cuda(y16, f, r)
+        loss32, acc32 = g.gated_crf_fused_cuda(y16.float(), f, r)
+        if not (torch.equal(loss16, loss32) and torch.equal(acc16, acc32)):
+            raise AssertionError(f"gated_crf bf16 ({tag}): loss or acc differs from the fp32 launch "
+                                 f"on the widened input ({loss16.item()!r} vs {loss32.item()!r})")
+        y_b = y16.clone().requires_grad_(True)
+        y_f = y16.float().requires_grad_(True)
+        g.reset_launches()
+        g.gated_crf_potts(y_b, f, r).backward()
+        by_dtype = dict(g.launches_by_dtype)
+        g.gated_crf_potts(y_f, f, r).backward()
+        torch.cuda.synchronize()
+        if by_dtype != {"float32": 0, "bfloat16": 1} or g.launches["gated_crf"] != 2:
+            raise AssertionError(f"gated_crf bf16 ({tag}): launches {by_dtype}, {g.launches}")
+        if y_b.grad.dtype != torch.bfloat16 or not torch.equal(y_b.grad, y_f.grad.to(torch.bfloat16)):
+            raise AssertionError(f"gated_crf bf16 ({tag}): dy is not the fp32 dy rounded to bf16")
+        log(f"[gated_crf] bf16 entry ({tag}): loss {loss16.item():.9g} equals the fp32 launch on "
+            f"the widened input bit for bit, acc too; dy bf16 equals the fp32 dy rounded")
+        del acc16, acc32, y_b, y_f
+
     # Every row's ms is a median of single timed calls, host set-up inside the
     # events, as the earlier design's 0.51 + 0.54 ms were taken; back to back
     # the host set-up hides behind the queue, which is the device's time.
     y = inputs["present"]
+    y16 = y.to(torch.bfloat16)
+    call16_ms = cuda_median_ms(lambda: g.gated_crf_fused_cuda(y16, f, r))
+    loop16_ms = cuda_loop_ms(lambda: g.gated_crf_fused_cuda(y16, f, r))
+    log(f"[gated_crf] bf16 entry: fused pass {call16_ms:.4f} ms per call, {loop16_ms:.4f} ms back to "
+        f"back (y read as bf16: {2 * y.numel()} bytes instead of {4 * y.numel()})")
     cot = torch.ones((), device=dev)
     _, acc = g.gated_crf_fused_cuda(y, f, r)
     call_ms = cuda_median_ms(lambda: g.gated_crf_fused_cuda(y, f, r))
@@ -569,9 +606,10 @@ def phase_small_agreement(dev):
         f"out_conv grad max |diff| {(g_gpu - g_cpu).abs().max().item():.3g}")
 
 
-def main_path_setup(dev, tree_loss_weight: float = 0.1, iters: int = 4, rep_iters: int = 2):
+def main_path_setup(dev, tree_loss_weight: float = 0.1, iters: int = 4, rep_iters: int = 2,
+                    amp: bool = False):
     """The main path's workload: ODOC at full width, by default at the
-    default tree weight with 4 steps (2 head, 2 body).
+    default tree weight with 4 steps (2 head, 2 body), in fp32 unless ``amp``.
 
     Returns (cfg, cid, model, state, round_fn, batches); random weights from
     cfg.seed, smooth images and 95%-unlabelled scribbles from numpy seed 1.
@@ -583,7 +621,7 @@ def main_path_setup(dev, tree_loss_weight: float = 0.1, iters: int = 4, rep_iter
     cfg = TrainConfig.for_task(
         "odoc", procedure="ours", strategy="FedICRA", model="unet_lc_multihead",
         tree_loss_weight=tree_loss_weight, iters=iters, rep_iters=rep_iters, batch_size=BATCH,
-        img_size=IMG,
+        img_size=IMG, amp=amp,
     )
     cid = 1
     model = net_factory("unet_lc_multihead", in_chns=cfg.in_chns, class_num=cfg.num_classes,
@@ -602,8 +640,46 @@ def main_path_setup(dev, tree_loss_weight: float = 0.1, iters: int = 4, rep_iter
     return cfg, cid, model, state, round_fn, batches
 
 
+def dtype_probe(model):
+    """Record one forward's dtypes: the model's outputs (a forward hook) and
+    the input of every batch-norm op (``F.batch_norm`` wrapped). Returns
+    (record, remove): ``record`` maps an output name, or "batch_norm input",
+    to the set of dtypes seen; ``remove()`` undoes both."""
+    import torch.nn.functional as F
+
+    record: dict = {}
+    batch_norm = F.batch_norm
+
+    def seen(name, t):
+        record.setdefault(name, set()).add(str(t.dtype).replace("torch.", ""))
+
+    def hook(module, args, out):
+        seen("logits", out["logits"])
+        for key in ("features", "de", "aux"):
+            for t in out.get(key, []):
+                seen(key, t)
+        for t in out.get("heatmaps", []):
+            if t is not None:
+                seen("heatmaps", t)
+
+    def recording_batch_norm(x, *args, **kwargs):
+        seen("batch_norm input", x)
+        return batch_norm(x, *args, **kwargs)
+
+    handle = model.register_forward_hook(hook)
+    F.batch_norm = recording_batch_norm
+
+    def remove():
+        handle.remove()
+        F.batch_norm = batch_norm
+
+    return record, remove
+
+
 def phase_round(dev, tag: str, **setup):
-    """One FedICRA round at full width; returns the kernels' launch counts."""
+    """One FedICRA round at full width; returns its launch counts, losses,
+    step times and peak memory. Under ``amp=True`` it also records the
+    dtypes of the first step's forwards and holds them to JAX's AMP."""
     from fedicra_torch.models.params_filters import is_dsn_head, is_head, is_pcs
     from fedicra_torch.ops import gated_crf_cuda, tree_filter
 
@@ -612,13 +688,17 @@ def phase_round(dev, tag: str, **setup):
     tree_on = cfg.tree_loss_weight != 0.0
     n_params = sum(p.numel() for p in state.params.values())
     log(f"[{tag}] unet_lc_multihead {n_params} params; batches {tuple(batches['image'].shape)}; "
-        f"cid {cid}; tree_loss_weight {cfg.tree_loss_weight}; {iters - rep} head + {rep} body steps")
+        f"cid {cid}; tree_loss_weight {cfg.tree_loss_weight}; amp {cfg.amp}; "
+        f"{iters - rep} head + {rep} body steps")
 
     snaps, stamps = [], []
+    dtypes, remove_probe = dtype_probe(model) if cfg.amp else ({}, None)
 
     def on_step(j, metrics):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
+        if j == 0 and remove_probe is not None:
+            remove_probe()
         if j == iters - rep - 1:
             snaps.append({n: p.detach().clone() for n, p in model.named_parameters()})
 
@@ -627,32 +707,52 @@ def phase_round(dev, tag: str, **setup):
     gated_crf_cuda.reset_launches()
     tree_filter.reset_calls()
     t0 = time.perf_counter()
-    new, metrics = round_fn(state, batches, cid, on_step=on_step)
+    try:
+        new, metrics = round_fn(state, batches, cid, on_step=on_step)
+    finally:
+        if remove_probe is not None:
+            remove_probe()
     torch.cuda.synchronize()
     launches = dict(gated_crf_cuda.launches)
+    by_dtype = dict(gated_crf_cuda.launches_by_dtype)
     calls = dict(tree_filter.calls)
+    peak = torch.cuda.max_memory_allocated() / 2**30
 
-    losses = metrics["total_loss"].cpu()
+    losses = metrics["total_loss"].float().cpu()
     steps = np.diff([t0] + stamps) * 1e3
     log(f"[{tag}] total_loss per step {losses.tolist()}")
     for k in ("loss_ce", "loss_tree", "loss_crf", "loss_lc"):
-        log(f"[{tag}] {k} per step {metrics[k].cpu().tolist()}")
+        log(f"[{tag}] {k} per step {metrics[k].float().cpu().tolist()} ({metrics[k].dtype})")
     log(f"[{tag}] step ms {[round(float(s), 3) for s in steps]}")
-    log(f"[{tag}] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"[{tag}] kernel launches {launches}; tree filter runs {calls}")
+    log(f"[{tag}] max_memory_allocated {peak:.3f} GiB")
+    log(f"[{tag}] kernel launches {launches} (by y dtype {by_dtype}); tree filter runs {calls}")
 
     if losses.shape != (iters,) or not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite or misshapen losses {losses}")
     for k in ("loss_ce", "loss_tree", "loss_crf", "loss_lc"):
-        if not torch.isfinite(metrics[k]).all():
+        if not torch.isfinite(metrics[k].float()).all():
             raise AssertionError(f"{k} not finite")
     if tree_on and not (metrics["loss_tree"] > 0).all():
         raise AssertionError(f"loss_tree {metrics['loss_tree'].tolist()} at weight {cfg.tree_loss_weight}")
     if launches != {"gated_crf": iters}:
         raise AssertionError(f"expected one fused gated-CRF launch per step, got {launches}")
+    want_dtype = "bfloat16" if cfg.amp else "float32"
+    if by_dtype[want_dtype] != iters:
+        raise AssertionError(f"expected {iters} gated-CRF launches on {want_dtype} y, got {by_dtype}")
     n_filter = 4 * iters if tree_on else 0
     if calls != {"tree_filter_fwd": n_filter, "tree_filter_bwd": n_filter}:
         raise AssertionError(f"expected {n_filter} tree filter forwards and backwards, got {calls}")
+    if cfg.amp:
+        log(f"[{tag}] dtypes of step 1's forwards (own and contrast): "
+            + "; ".join(f"{k} {sorted(v)}" for k, v in sorted(dtypes.items())))
+        # JAX's AMP: bf16 logits and heatmap; fp32 features, decoder stages,
+        # DSN aux, and every BatchNorm's input
+        want = {"logits": {"bfloat16"}, "heatmaps": {"bfloat16"}, "features": {"float32"},
+                "de": {"float32"}, "aux": {"float32"}, "batch_norm input": {"float32"}}
+        if dtypes != want:
+            raise AssertionError(f"AMP dtypes {dtypes}, expected {want}")
+        if metrics["loss_ce"].dtype != torch.bfloat16 or metrics["total_loss"].dtype != torch.float32:
+            raise AssertionError(f"AMP loss dtypes {metrics['loss_ce'].dtype}, {metrics['total_loss'].dtype}")
     before, after, head_end = state.params, new.params, snaps[0]
     for n in before:
         if is_pcs(n) and not torch.equal(before[n], after[n]):
@@ -660,12 +760,28 @@ def phase_round(dev, tag: str, **setup):
         if is_dsn_head(n) and torch.equal(before[n], after[n]) == tree_on:
             raise AssertionError(f"DSN parameter {n}: moved={not tree_on} over the round, "
                                  f"tree_loss_weight {cfg.tree_loss_weight}")
+        if before[n].dtype != torch.float32 or after[n].dtype != torch.float32:
+            raise AssertionError(f"parameter {n} is not fp32")
         moved = not torch.equal(before[n], head_end[n])
         if moved != is_head(n):
             raise AssertionError(f"head phase: {n} moved={moved}")
     if new.current_iter != iters:
         raise AssertionError(f"current_iter {new.current_iter}")
-    return launches
+    return dict(launches=launches, losses=losses.tolist(), steps=[float(x) for x in steps], peak=peak)
+
+
+def phase_main_amp(dev, fp32: dict) -> dict:
+    """The main path under AMP, held to the fp32 main path's first loss
+    (same weights, batches and dropout draws) within 5%."""
+    amp = phase_round(dev, "main-amp", amp=True)
+    first, first32 = amp["losses"][0], fp32["losses"][0]
+    rel = abs(first - first32) / abs(first32)
+    log(f"[main-amp] vs [main]: first total_loss {first:.7g} vs {first32:.7g} ({100 * rel:.3f}%); "
+        f"step ms {[round(x, 3) for x in amp['steps']]} vs {[round(x, 3) for x in fp32['steps']]}; "
+        f"max_memory_allocated {amp['peak']:.3f} vs {fp32['peak']:.3f} GiB")
+    if rel > 0.05:
+        raise AssertionError(f"AMP first loss {first!r} is {100 * rel:.2f}% from fp32's {first32!r}")
+    return amp
 
 
 def federation_config(img: int = IMG, batch: int = BATCH):
@@ -1033,6 +1149,96 @@ def phase_cli(dev, fed_snapshot: str, img: int = IMG, batch: int = BATCH,
     log("[cli] " + "; ".join(f"{k} {v['total_s']:.3f} s" for k, v in timer.summary().items()))
 
 
+def phase_models(dev, img: int = IMG, batch: int = BATCH) -> None:
+    """``pnet`` and ``efficient_unet`` through the federated train CLI under
+    ``--amp 1``: FedAvg, pCE, ODOC at full size, 1 round of 5 clients x 2
+    steps, evaluation at iteration 2, each route timed by StepTimer (card
+    synchronised) with the launch counters set to 0 just before it.
+    ``efficient_unet`` loads a synthetic efficientnet-pytorch B3 file
+    (``tests/torch_efficientnet_mirror.py``) as ``--encoder_weights``."""
+    import torch.nn.modules.module as module_hooks
+
+    import fedicra_torch.federation.experiment as experiment
+    from fedicra_torch.cli import train as train_cli
+    from fedicra_torch.models.efficientunet import EffiUNet, convert_torch_encoder_state_dict
+    from fedicra_torch.models.pnet import PNet2D
+    from fedicra_torch.utils.profiling import StepTimer
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_efficientnet_mirror import make_b3_state_dict
+
+    timer = StepTimer()
+    zero = {"gated_crf": 0, "gaussian_filter": 0, "tree_filter_fwd": 0, "tree_filter_bwd": 0}
+    steps = 5 * 2
+    with tempfile.TemporaryDirectory(prefix="fedicra_models_") as tmp:
+        weights = os.path.join(tmp, "efficientnet-b3.pth")
+        b3 = make_b3_state_dict(in_chns=3, seed=0)
+        torch.save(b3, weights)
+        for model_type, cls, extra in (("pnet", PNet2D, []),
+                                       ("efficient_unet", EffiUNet, ["--encoder_weights", weights])):
+            name = f"cli.train {model_type} --amp 1"
+            argv = ["--synthetic", "--img_class", "odoc", "--strategy", "FedAvg", "--procedure", "pce",
+                    "--model", model_type, "--amp", "1", "--img_size", str(img),
+                    "--batch_size", str(batch), "--iters", "2", "--eval_iters", "2",
+                    "--stop_after", "2", "--limit_per_client", "12",
+                    "--snapshot_root", os.path.join(tmp, "model"), "--exp", model_type,
+                    "--device", str(dev)] + extra
+            logits = set()
+
+            def hook(module, args, out, cls=cls):
+                if isinstance(module, cls) and module.training:
+                    logits.add(str(out["logits"].dtype).replace("torch.", ""))
+
+            states = []
+            init = experiment.init_client_state
+
+            def recording_init(*args, **kwargs):
+                states.append(init(*args, **kwargs))
+                return states[-1]
+
+            handle = module_hooks.register_module_forward_hook(hook)
+            experiment.init_client_state = recording_init
+            _reset_kernel_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(out), timer.time(name, block_on=dev):
+                    result = train_cli.main(argv)
+            finally:
+                handle.remove()
+                experiment.init_client_state = init
+            seconds = timer.summary()[name]["total_s"]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            counts = _kernel_counts()
+            losses = [result["final"][f"client_{c}_total_loss"] for c in range(5)]
+            log(f"[models] {name}: {seconds:.3f} s; {seconds / steps:.3f} s per local step (wall / "
+                f"{steps}, data, evaluation and checkpoints included); max_memory_allocated "
+                f"{peak:.3f} GiB; kernel launches {counts}; training logits {sorted(logits)}; "
+                f"total_loss per client {[round(v, 6) for v in losses]}; val_mean_dice "
+                f"{result['final']['val_mean_dice']:.6f}")
+            if json.loads(out.getvalue().splitlines()[-1]) != json.loads(json.dumps(result)):
+                raise AssertionError(f"{name}: last printed line is not the returned JSON")
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{name}: non-finite losses {losses}")
+            if counts != zero:
+                raise AssertionError(f"{name} launched custom kernels: {counts}")
+            # JAX's AMP reaches pnet's bare convs nowhere; efficient_unet's
+            # classifier computes in bf16
+            want = {"float32"} if model_type == "pnet" else {"bfloat16"}
+            if logits != want:
+                raise AssertionError(f"{name}: training logits {logits}, expected {want}")
+            if model_type == "efficient_unet":
+                file_leaves = convert_torch_encoder_state_dict(b3)
+                state = states[0]
+                loaded = {**state.params, **state.batch_stats}
+                for k, v in file_leaves.items():
+                    if not torch.equal(loaded[f"encoder.{k}"].cpu(), v):
+                        raise AssertionError(f"{name}: encoder leaf {k} is not the file's")
+                log(f"[models] {name}: {len(file_leaves)} encoder leaves equal the file's")
+    log("[models] " + "; ".join(f"{k} {v['total_s']:.3f} s" for k, v in timer.summary().items()))
+
+
 def card_name_and_power() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -1063,15 +1269,19 @@ def main() -> int:
     phase_small_agreement(dev)
     phase_round(dev, "tree-off", tree_loss_weight=0.0, iters=2, rep_iters=1)
     torch.cuda.empty_cache()
-    launches = phase_round(dev, "main")
-    gated_row["launches"] = launches["gated_crf"]
+    main_run = phase_round(dev, "main")
+    gated_row["launches"] = main_run["launches"]["gated_crf"]
     rows = [gated_row, gaussian_row]
+    torch.cuda.empty_cache()
+    phase_main_amp(dev, main_run)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="fedicra_smoke_") as tmp:
         fed_snapshot = os.path.join(tmp, "federation")
         phase_federation(dev, fed_snapshot)
         torch.cuda.empty_cache()
         phase_cli(dev, fed_snapshot)
+    torch.cuda.empty_cache()
+    phase_models(dev)
 
     print(card_name_and_power())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -48,6 +48,9 @@ def main(argv=None):
     p.add_argument("--strategy", type=str, default="FedAvg")
     p.add_argument("--img_size", type=int, default=256)
     p.add_argument("--amp", type=int, default=0)
+    p.add_argument("--encoder_weights", type=str, default=None,
+                   help="efficientnet-pytorch B3 .pth for efficient_unet (passed on "
+                        "to the train CLI when given)")
     p.add_argument("--rep_iters", type=int, default=3)
     p.add_argument("--root_path", type=str, default="../data")
     p.add_argument("--synthetic", action="store_true",
@@ -84,6 +87,8 @@ def main(argv=None):
         "--img_size", str(args.img_size),
         "--amp", str(args.amp),
     ]
+    if args.encoder_weights:
+        train_args += ["--encoder_weights", args.encoder_weights]
     if args.synthetic:
         train_args.append("--synthetic")
 

@@ -9,11 +9,18 @@ module names follow the flax paths, so the mapping is a rule:
   stats ``.../X/bn/{mean,var}`` -> ``X.{running_mean,running_var}``;
 - ``.../dsn_headN/{conv_kernel,conv_bias,bn_scale,bn_bias,out_kernel}``
   (``DSNHead``'s raw params) -> ``dsn_headN.{conv,bn,out}.*``, stats
-  ``dsn_headN/{mean,var}`` -> ``dsn_headN.bn.running_*``.
+  ``dsn_headN/{mean,var}`` -> ``dsn_headN.bn.running_*``;
+- a bare flax ``nn.Conv`` or ``nn.BatchNorm``, with no wrapper between its
+  name and its leaves, is named by ``BARE``: ``.../X/{kernel,bias}`` ->
+  ``X.{weight,bias}`` and ``.../X/{scale,bias,mean,var}`` -> ``X.*`` as
+  above. These are ``pnet``'s 1x1 convs and ``efficient_unet``'s stem and
+  depthwise convs and decoder BatchNorms; the port's names alone cannot
+  tell them from wrapped ones, so the reverse map needs the rule.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Tuple
 
 import numpy as np
@@ -28,6 +35,9 @@ _DSN_PARAMS = {
 }
 _DSN_STATS = {"mean": "bn.running_mean", "var": "bn.running_var"}
 _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+_CONV_LEAF = {"kernel": "weight", "bias": "bias"}
+# the bare flax modules, by their port names
+BARE = re.compile(r"(?:^|\.)(?:stem_conv|dwconv|(?:catblock|out)\.conv\d|dec\d+\.bn\d)$")
 
 
 def _flatten(tree, prefix=()):
@@ -57,6 +67,8 @@ def _torch_name(path: Tuple[str, ...], stats: bool) -> str:
         return ".".join(parent + [_BN_LEAF[leaf]])
     if owner == "conv" and not stats:
         return ".".join(parent + ["weight" if leaf == "kernel" else "bias"])
+    if BARE.search(".".join(parent + [owner])):
+        return ".".join(parent + [owner, {**_CONV_LEAF, **_BN_LEAF}[leaf]])
     raise KeyError(f"no port name for flax path {'/'.join(path)}")
 
 
@@ -92,9 +104,11 @@ def state_dict_to_flax(sd: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
                 params[tuple(parts[:-2]) + (dsn_params[sub],)] = a
             continue
         owner, leaf = ".".join(parts[:-1]), parts[-1]
+        bare = BARE.search(owner) is not None
         if owner in bn_owners:
             target = stats if leaf.startswith("running_") else params
-            target[tuple(parts[:-1]) + ("bn", bn_leaf[leaf])] = a
+            target[tuple(parts[:-1]) + (() if bare else ("bn",)) + (bn_leaf[leaf],)] = a
         else:
-            params[tuple(parts[:-1]) + ("conv", "kernel" if leaf == "weight" else "bias")] = a
+            kernel = "kernel" if leaf == "weight" else "bias"
+            params[tuple(parts[:-1]) + (() if bare else ("conv",)) + (kernel,)] = a
     return _unflatten(params), _unflatten(stats)

@@ -8,8 +8,11 @@
 //   k_o(q)  = exp(-1/2 ||f(q+o) - f(q)||^2)
 //   K(q)    = sum_o k_o(q),   acc(q) = sum_o k_o(q) * y(q+o)
 //   S_b     = sum_q sum_o k_o(q) (1 - <y(q), y(q+o)>) = sum_q [K(q) - <y(q), acc(q)>]
-// y is (B, C, H, W) f32 probabilities, f is (B, F, H, W) f32 features
-// [x/6, y/6, rgb/0.1]. Outside the image both y AND f are zero, so a border
+// y is (B, C, H, W) probabilities, f32 or bf16 (the softmax of bf16 logits
+// under AMP), f is (B, F, H, W) f32 features [x/6, y/6, rgb/0.1]. A bf16 y
+// is widened to f32 once, exactly, as it is staged; everything after is the
+// f32 arithmetic of an f32 y, so a bf16 launch gives the loss and acc of an
+// f32 launch on the widened y bit for bit. Outside the image both y AND f are zero, so a border
 // neighbour still adds exp(-1/2 ||f(q)||^2) to K(q) and nothing to acc(q);
 // the identity above holds exactly under that padding. The loss is
 // sum_b S_b / (B H W); dL/dy = -2 g / (B H W) * acc, which the caller forms
@@ -46,7 +49,8 @@
 //   s n - s c is one FMA, and the negated squared norm feeds ex2.approx.ftz.
 // - Staging: one block per 24 x 32 output tile (192 threads) stages the tile
 //   with an r-pixel halo (34 x 42 positions at r = 5, 1.86x the tile) by
-//   4-byte cp.async with zero-fill outside the image, into a quad-major
+//   4-byte cp.async with zero-fill outside the image (a bf16 y: a 2-byte
+//   read-only load, widened by a 16-bit shift, stored as f32), into a quad-major
 //   shared layout [quad][row][col] (a warp's float4 reads are consecutive:
 //   no bank conflicts); each position's row and column come from a divisor
 //   known at compile time. 45.7 KB at C=3, F=5, r=5, so 4 blocks (24 warps)
@@ -91,15 +95,17 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 
 // Start the copies of one tile's y and f, with the halo, into `buf` as
 // [quad][row][col] float4s, channel ch at quad ch / 4, lane ch % 4, in the
-// order f_0 .. f_{F-1}, y_0 .. y_{C-1}. Zero outside the image.
-template <int C, int F, int R>
-__device__ __forceinline__ void stage(float4* buf, const float* __restrict__ y,
+// order f_0 .. f_{F-1}, y_0 .. y_{C-1}. Zero outside the image. With BF16_Y,
+// y holds bf16 bit patterns; each is widened (bits << 16) and stored as f32.
+template <bool BF16_Y, int C, int F, int R>
+__device__ __forceinline__ void stage(float4* buf, const void* __restrict__ y,
                                       const float* __restrict__ f, int H, int W, int b, int ty0,
                                       int tx0) {
   using S = Shape<C, F, R>;
   const size_t hw = (size_t)H * W;
   const float* fb = f + (size_t)b * F * hw;
-  const float* yb = y + (size_t)b * C * hw;
+  const float* yb = static_cast<const float*>(y) + (size_t)b * C * hw;
+  const unsigned short* yb16 = static_cast<const unsigned short*>(y) + (size_t)b * C * hw;
   const unsigned base = (unsigned)__cvta_generic_to_shared(buf);
   for (int i = threadIdx.x; i < S::POS; i += THREADS) {
     const int row = i / S::SW;  // a compile-time divisor: a multiply and a shift
@@ -111,10 +117,16 @@ __device__ __forceinline__ void stage(float4* buf, const float* __restrict__ y,
     const int nbytes = inside ? 4 : 0;  // 0: nothing is read, the word is zero-filled
 #pragma unroll
     for (int ch = 0; ch < F + C; ++ch) {
-      const float* src = (ch < F ? fb + ch * hw : yb + (ch - F) * hw) + off;
       const unsigned dst = base + (unsigned)((((ch >> 2) * S::POS + i) * 4 + (ch & 3)) * 4);
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-                   "r"(nbytes));
+      if (BF16_Y && ch >= F) {
+        const float v =
+            inside ? __uint_as_float((unsigned)__ldg(yb16 + (ch - F) * hw + off) << 16) : 0.0f;
+        asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(dst), "f"(v));
+      } else {
+        const float* src = (ch < F ? fb + ch * hw : yb + (ch - F) * hw) + off;
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+                     "r"(nbytes));
+      }
     }
   }
 }
@@ -219,9 +231,9 @@ __device__ __forceinline__ double block_sum(double v, double* warp_sums) {
   return t;
 }
 
-template <int C, int F, int R, bool WRITE_ACC>
+template <bool BF16_Y, int C, int F, int R, bool WRITE_ACC>
 __global__ void __launch_bounds__(THREADS)
-gated_crf_fused_kernel(const float* __restrict__ y, const float* __restrict__ f,
+gated_crf_fused_kernel(const void* __restrict__ y, const float* __restrict__ f,
                        float* __restrict__ acc_out, double* __restrict__ partial,
                        unsigned* __restrict__ done, float* __restrict__ loss, int H, int W,
                        int tiles_x, int tiles_per_image, double denom) {
@@ -234,7 +246,7 @@ gated_crf_fused_kernel(const float* __restrict__ y, const float* __restrict__ f,
   const int rem = tile - b * tiles_per_image;
   const int ty0 = (rem / tiles_x) * TILE_H;
   const int tx0 = (rem % tiles_x) * TILE_W;
-  stage<C, F, R>(smem, y, f, H, W, b, ty0, tx0);
+  stage<BF16_Y, C, F, R>(smem, y, f, H, W, b, ty0, tx0);
   asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();  // the tile's copies, from every thread, have landed
   const double s = tile_pass<C, F, R, WRITE_ACC>(smem, acc_out, H, W, b, ty0, tx0);
@@ -259,7 +271,8 @@ gated_crf_fused_kernel(const float* __restrict__ y, const float* __restrict__ f,
 }
 
 struct Args {
-  const float* y;
+  const void* y;
+  bool y_bf16;
   const float* f;
   float* acc;
   double* partial;
@@ -271,10 +284,10 @@ struct Args {
 
 int tiles_along(int n, int tile) { return (n + tile - 1) / tile; }
 
-template <int C, int F, int R, bool WRITE_ACC>
+template <bool BF16_Y, int C, int F, int R, bool WRITE_ACC>
 int launch(const Args& a) {
   using S = Shape<C, F, R>;
-  auto kernel = gated_crf_fused_kernel<C, F, R, WRITE_ACC>;
+  auto kernel = gated_crf_fused_kernel<BF16_Y, C, F, R, WRITE_ACC>;
   // above 48 KB of dynamic shared memory only once allowed, per device
   static bool smem_raised[MAX_DEVICES] = {false};
   if (a.device < 0 || a.device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
@@ -292,20 +305,25 @@ int launch(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <int C, int F, int R>
+template <bool BF16_Y, int C, int F, int R>
 int launch_acc(const Args& a) {
-  return a.acc ? launch<C, F, R, true>(a) : launch<C, F, R, false>(a);
+  return a.acc ? launch<BF16_Y, C, F, R, true>(a) : launch<BF16_Y, C, F, R, false>(a);
+}
+
+template <int C, int F, int R>
+int launch_dtype(const Args& a) {
+  return a.y_bf16 ? launch_acc<true, C, F, R>(a) : launch_acc<false, C, F, R>(a);
 }
 
 // Instantiate radius 1..5.
 template <int C, int F>
 int launch_radius(const Args& a, int r) {
   switch (r) {
-    case 1: return launch_acc<C, F, 1>(a);
-    case 2: return launch_acc<C, F, 2>(a);
-    case 3: return launch_acc<C, F, 3>(a);
-    case 4: return launch_acc<C, F, 4>(a);
-    case 5: return launch_acc<C, F, 5>(a);
+    case 1: return launch_dtype<C, F, 1>(a);
+    case 2: return launch_dtype<C, F, 2>(a);
+    case 3: return launch_dtype<C, F, 3>(a);
+    case 4: return launch_dtype<C, F, 4>(a);
+    case 5: return launch_dtype<C, F, 5>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -325,20 +343,22 @@ int gated_crf_num_tiles(int B, int H, int W) {
   return B * tiles_along(H, TILE_H) * tiles_along(W, TILE_W);
 }
 
-// loss[0] = sum_b S_b / (B H W); acc (B, C, H, W) = sum_o k_o(q) y(q+o) when
-// `acc` is not NULL. `partial` holds gated_crf_num_tiles doubles; `done` is
-// an unsigned counter that is 0 before the launch and that the launch leaves
-// at 0 (one counter per stream). `device` is the CUDA ordinal the tensors and
-// `stream` belong to. Instantiates C in 1..4 and F in {3, 5}: F = 2 + image
-// channels, and the tasks' images have 1 or 3 channels. Returns the CUDA
-// error of the launch (0 on success).
-int gated_crf_fused(const float* y, const float* f, float* acc, double* partial,
+// loss[0] = sum_b S_b / (B H W); acc (B, C, H, W), f32 = sum_o k_o(q) y(q+o)
+// when `acc` is not NULL. `y` holds f32, or bf16 when `y_bf16` is not 0.
+// `partial` holds gated_crf_num_tiles doubles; `done` is an unsigned counter
+// that is 0 before the launch and that the launch leaves at 0 (one counter
+// per stream). `device` is the CUDA ordinal the tensors and `stream` belong
+// to. Instantiates C in 1..4 and F in {3, 5}: F = 2 + image channels, and the
+// tasks' images have 1 or 3 channels; each for both y types. Returns the
+// CUDA error of the launch (0 on success).
+int gated_crf_fused(const void* y, int y_bf16, const float* f, float* acc, double* partial,
                     unsigned* done, float* loss, int B, int C, int F, int H, int W, int r,
                     int device, void* stream) {
   if (!shape_ok(B, C, F, H, W, r)) return (int)cudaErrorInvalidValue;
   cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const Args a{y, f, acc, partial, done, loss, B, H, W, device, (cudaStream_t)stream};
+  const Args a{y, y_bf16 != 0, f, acc, partial, done, loss, B, H, W, device,
+               (cudaStream_t)stream};
   switch (C * 16 + F) {
     case 1 * 16 + 3: return launch_radius<1, 3>(a, r);
     case 1 * 16 + 5: return launch_radius<1, 5>(a, r);

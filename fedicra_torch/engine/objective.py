@@ -14,7 +14,9 @@ heatmap under client k's embedding, no gradient). At ``tree_loss_weight``
 
 The objectives run the model in train mode and so advance its BatchNorm
 running statistics in place, as the reference's torch code does; they
-return ``(loss, metrics)``.
+return ``(loss, metrics)``. Under AMP the terms keep the dtypes JAX gives
+them: bf16 logits give a bf16 softmax, pCE and contrast term, the gated
+CRF and the tree term come back fp32, and their sum is fp32.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..losses.gated_crf import gated_crf_loss_auto
 from ..losses.partial import partial_cross_entropy
 from ..losses.tree_energy import multi_scale_tree_energy_loss
 from ..models.factory import LC_MODELS
+from ..ops.activations import softmax
 from .config import TrainConfig
 
 
@@ -48,15 +51,16 @@ def _contrast_loss(
     """
     K = cfg.num_clients
     batch = images.shape[0]
-    total = hm_own.new_zeros(())
+    mses = []
     for k in range(K):
         if k == cid:
             continue
         emb = torch.full((batch,), cid if k == 0 else k, dtype=torch.long, device=images.device)
         with torch.no_grad():
             hm_k = model(images, emb_idx=emb, generator=generator)["heatmaps"][-1]
-        total = total + torch.mean((hm_own - hm_k) ** 2)
-    return -total / (K - 1)
+        mses.append(torch.mean((hm_own - hm_k) ** 2))
+    # one sum in the heatmaps' dtype, as JAX's (bf16 under AMP)
+    return -torch.stack(mses).sum() / (K - 1)
 
 
 def _forward(model, images, cid, cfg: TrainConfig, generator):
@@ -90,13 +94,13 @@ def ours_loss(
     images, labels = batch["image"], batch["label"]
     out = _forward(model, images, cid, cfg, generator)
     logits = out["logits"]
-    probs = torch.softmax(logits, dim=-1)
+    probs = softmax(logits, dim=-1)
 
     loss_ce = partial_cross_entropy(logits, labels, cfg.num_classes)
     if cfg.tree_loss_weight == 0.0:
         # The DSN heads still ran in train mode above (their running
         # statistics advance), but their outputs feed only the tree term.
-        loss_tree = logits.new_zeros(())
+        loss_tree = torch.zeros((), device=logits.device)
     else:
         loss_tree = _tree_loss(out, images, labels, cfg, recursive=True)
     loss_crf = gated_crf_loss_auto(probs, images, radius=cfg.gatecrf_radius)

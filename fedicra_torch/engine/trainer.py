@@ -11,6 +11,10 @@ Counterpart of ``fedicra_tpu/engine/trainer.py``:
   decay) and get ``requires_grad=False``; gradients still flow through
   them. That covers PCS always, and the DSN heads under the pCE objective or
   under "ours" with ``tree_loss_weight == 0`` (no loss reaches them).
+- ``cfg.amp``: the objective (its forwards and the backward through them)
+  runs under ``compute_dtype(torch.bfloat16)``, as JAX's ``loss_fn`` sets
+  the compute dtype; parameters, gradients and AdamW's state stay fp32, and
+  bf16 needs no gradient scaler.
 
 A ``ClientState`` holds one client's weights as tensors on the device, so
 one model object can serve every client in turn.
@@ -24,7 +28,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from ..device import resolve_device
-from ..models.blocks import init_torch_default
+from ..models.blocks import compute_dtype, init_torch_default
 from ..models.params_filters import is_dsn_head, is_head, is_pcs
 from .config import TrainConfig
 from .objective import get_objective
@@ -52,10 +56,18 @@ def _split_state(model) -> tuple:
 
 def init_client_state(model, cfg: TrainConfig, seed: Optional[int] = None, device=None) -> ClientState:
     """Draw the model's weights from a generator seeded with ``seed`` (default
-    ``cfg.seed``; the same for every client) and place them on ``device``."""
+    ``cfg.seed``; the same for every client) and place them on ``device``.
+
+    ``efficient_unet`` then loads ``cfg.encoder_weights``, an
+    efficientnet-pytorch B3 ``.pth``, into its encoder when one is given.
+    """
     device = resolve_device(device)
     seed = cfg.seed if seed is None else seed
     init_torch_default(model, torch.Generator().manual_seed(seed))
+    if cfg.model == "efficient_unet" and cfg.encoder_weights:
+        from ..models.efficientunet import load_pretrained_encoder
+
+        load_pretrained_encoder(model, cfg.encoder_weights)
     model.to(device)
     params, stats = _split_state(model)
     generator = torch.Generator(device=device).manual_seed(seed + 1)
@@ -70,11 +82,10 @@ def make_round_fn(model, cfg: TrainConfig, device=None):
     shape [iters]. ``on_step(j, metrics_j)``, if given, is called after each
     optimizer step.
     """
-    if cfg.amp:
-        raise NotImplementedError("AMP is not ported yet (ROADMAP.md, section 0)")
     device = resolve_device(device)
     model.to(device)
     objective = get_objective(cfg)
+    amp_dtype = torch.bfloat16 if cfg.amp else None
     names = [n for n, _ in model.named_parameters()]
 
     def trainable(n: str) -> bool:
@@ -117,7 +128,8 @@ def make_round_fn(model, cfg: TrainConfig, device=None):
                     g["lr"] = lr
                 opt.zero_grad(set_to_none=True)
                 batch = {"image": images[j], "label": labels[j]}
-                loss, metrics = objective(model, batch, cid, cfg, state.generator)
+                with compute_dtype(amp_dtype):
+                    loss, metrics = objective(model, batch, cid, cfg, state.generator)
                 loss.backward()
                 opt.step()
                 metrics = {k: v.detach() for k, v in metrics.items()}

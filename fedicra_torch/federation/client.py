@@ -137,7 +137,8 @@ class FederatedClient:
         self.state, metrics = self.round_fn(self.state, batches, self.cid)
         scalar_metrics = {}
         for k, v in metrics.items():
-            arr = v.detach().cpu().numpy()
+            v = v.detach().cpu()
+            arr = (v.float() if v.is_floating_point() else v).numpy()  # numpy has no bf16
             if arr.ndim <= 1:
                 scalar_metrics[f"client_{self.cid}_{k}"] = float(arr[-1])
             else:  # per-iter arrays (vis_pred): keep the last iteration

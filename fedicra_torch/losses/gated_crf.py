@@ -30,8 +30,9 @@ def gated_crf_features(image: torch.Tensor, sigma_xy: float, sigma_rgb: float) -
 
 
 def _planes(softmax_probs: torch.Tensor, image: torch.Tensor):
+    """(y, f) planes; y keeps its dtype (bf16 under AMP), f is float32."""
     feats = gated_crf_features(image, LIVE_KERNEL["xy"], LIVE_KERNEL["rgb"])
-    y = softmax_probs.float().permute(0, 3, 1, 2).contiguous()
+    y = softmax_probs.permute(0, 3, 1, 2).contiguous()
     f = feats.float().permute(0, 3, 1, 2).contiguous()
     return y, f
 

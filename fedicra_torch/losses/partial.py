@@ -8,16 +8,22 @@ where ``num_classes`` marks an unlabelled pixel.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
+
+from ..ops.activations import log_softmax
 
 
 def partial_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, num_classes: int) -> torch.Tensor:
-    """Mean CE over the pixels whose label is not ``num_classes``; 0 if none is."""
-    labels = labels.long()
-    nll = F.cross_entropy(
-        logits.permute(0, 3, 1, 2), labels, ignore_index=num_classes, reduction="sum"
-    )
-    return nll / (labels != num_classes).sum().clamp(min=1)
+    """Mean CE over the pixels whose label is not ``num_classes``; 0 if none is.
+
+    Written as JAX's is, so it rounds where JAX does in the logits' dtype
+    (bf16 under AMP): each step of the log-softmax, the per-pixel loss, its
+    sum (taken in fp32 and rounded once) and the division by the count.
+    """
+    valid = labels != num_classes
+    safe = torch.where(valid, labels, 0).long()
+    nll = -log_softmax(logits, dim=-1).gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum() / valid.sum().clamp(min=1)
 
 
 def partial_dice_loss(probs: torch.Tensor, labels: torch.Tensor, num_classes: int) -> torch.Tensor:

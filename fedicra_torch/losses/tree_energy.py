@@ -29,6 +29,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.activations import softmax
 from ..ops.mst import boruvka_mst, grid_edges
 from ..ops.tree import TreeStructure, build_tree
 from ..ops.tree_filter import tree_filter
@@ -102,7 +103,7 @@ def _prep(preds, low_feats, unlabeled_rois):
     h, w = preds.shape[1:3]
     low = resize_linear(low_feats, (h, w)).detach()
     rois = resize_nearest(unlabeled_rois[..., None].to(preds.dtype), (h, w))
-    return torch.softmax(preds, dim=-1), low, rois
+    return softmax(preds, dim=-1), low, rois
 
 
 def _roi_normalised(loss: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:

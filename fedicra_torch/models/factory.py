@@ -2,15 +2,16 @@
 
 Counterpart of ``fedicra_tpu/models/factory.py``, with its keyword surface:
 ``dropout`` reaches ``unet`` and the LC models, ``dsn_dropout`` only
-``unet_lc_multihead``. ``pnet`` and ``efficient_unet`` are not ported yet and
-raise ``NotImplementedError`` (ROADMAP.md, queue 1, the remaining model
-types).
+``unet_lc_multihead``; ``pnet`` and ``efficient_unet`` take the task's
+channels and classes alone.
 """
 
 from __future__ import annotations
 
 from torch import nn
 
+from .efficientunet import EffiUNet
+from .pnet import PNet2D
 from .unet import (
     UNet,
     UNetCCT,
@@ -41,6 +42,8 @@ MODEL_TYPES = (
 LC_MODELS = ("unet_lc", "unet_lc_multihead", "unet_lc_multihead_two")
 
 _PLAIN = {
+    "efficient_unet": EffiUNet,
+    "pnet": PNet2D,
     "unet_cct": UNetCCT,
     "unet_cct_3h": UNetCCT3H,
     "unet_ds": UNetDS,
@@ -78,10 +81,5 @@ def net_factory(
             client_id=client_id,
             pcs_num=pcs_num,
             **kw,
-        )
-    if net_type in MODEL_TYPES:
-        raise NotImplementedError(
-            f"model type {net_type!r} is not ported yet "
-            "(ROADMAP.md, queue 1: the remaining model types)"
         )
     raise ValueError(f"unknown net_type {net_type!r}; expected one of {MODEL_TYPES}")

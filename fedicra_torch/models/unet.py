@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.activations import sigmoid
 from .blocks import ConvBlock, DSNHead, DownBlock, UpBlock, conv
 
 DEFAULT_FEATURES = (16, 32, 64, 128, 256)
@@ -62,7 +63,7 @@ class PersonalizedChannelSelection(nn.Module):
         e = self.fc1_b(F.relu(self.fc1_a(emb[:, :, None, None])))
         avg_o = self.fc2_b(F.relu(self.fc2_a(torch.cat([avg_out, e], dim=1))))
         max_o = self.fc2_b(F.relu(self.fc2_a(torch.cat([max_out, e], dim=1))))
-        hmap = torch.sigmoid(avg_o + max_o)  # (B, C, 1, 1)
+        hmap = sigmoid(avg_o + max_o)  # (B, C, 1, 1)
         return x * hmap + x, hmap
 
 

@@ -5,8 +5,12 @@ Replaces the Pallas TPU kernels ``_fwd_kernel`` / ``_bwd_kernel`` of
 (route: CUDA C++ for sm_90a, built by ``ops/_build.py`` and bound with
 ctypes) that gives the loss and the gradient's accumulator in one pass.
 
-Layout is planes: ``y`` (B, C, H, W) probabilities and ``feats`` (B, F, H, W)
-guide features, both float32. With offsets o != 0, |dy|, |dx| <= radius::
+Layout is planes: ``y`` (B, C, H, W) probabilities, float32 or bfloat16 (the
+softmax of bf16 logits under AMP), and ``feats`` (B, F, H, W) float32 guide
+features. A bf16 ``y`` is widened once, exactly, as the kernel stages it;
+from there on everything is the float32 arithmetic of a float32 ``y``, so
+the loss and acc equal those of a float32 launch on ``y.float()`` bit for
+bit. With offsets o != 0, |dy|, |dx| <= radius::
 
     k_o(q) = exp(-1/2 ||f(q+o) - f(q)||^2)         (y and f zero outside)
     K(q)   = sum_o k_o(q),   acc(q) = sum_o k_o(q) y(q+o)
@@ -16,8 +20,9 @@ guide features, both float32. With offsets o != 0, |dy|, |dx| <= radius::
 
 ``gated_crf_potts`` takes the plain PyTorch twin for CPU tensors and the
 kernel for CUDA tensors; for a CUDA tensor it launches the kernel or raises.
-The forward saves acc when ``y`` needs a gradient, so the backward launches
-nothing. ``launches`` counts launches of the fused kernel.
+The forward saves acc (float32) when ``y`` needs a gradient, so the backward
+launches nothing; it returns dL/dy in ``y``'s dtype. ``launches`` counts
+launches of the fused kernel, ``launches_by_dtype`` the same by ``y``'s dtype.
 """
 
 from __future__ import annotations
@@ -34,11 +39,16 @@ MAX_CHANNELS = 4
 FEATURE_CHANNELS = (3, 5)  # xy + 1 or 3 image channels
 MAX_RADIUS = 5
 
+Y_DTYPES = (torch.float32, torch.bfloat16)
+
 launches = {"gated_crf": 0}
+launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 
 def reset_launches() -> None:
     launches["gated_crf"] = 0
+    for k in launches_by_dtype:
+        launches_by_dtype[k] = 0
 
 
 def _windows(radius: int, h: int, w: int):
@@ -52,7 +62,9 @@ def _windows(radius: int, h: int, w: int):
 
 def gated_crf_potts_plain(y: torch.Tensor, feats: torch.Tensor, radius: int) -> torch.Tensor:
     """The loss in plain PyTorch, pair by pair, streaming over the
-    (2r+1)^2 - 1 offsets; differentiable in ``y``. CPU tensors take it."""
+    (2r+1)^2 - 1 offsets, on ``y`` widened to the features' dtype (as the
+    kernel widens a bf16 ``y``); differentiable in ``y``. CPU tensors take it."""
+    y = y.to(feats.dtype)
     b, _, h, w = y.shape
     pad = (radius,) * 4
     y_pad, f_pad = F.pad(y, pad), F.pad(feats, pad)
@@ -68,10 +80,12 @@ def gated_crf_potts_plain(y: torch.Tensor, feats: torch.Tensor, radius: int) -> 
 def gated_crf_potts_fused_plain(y: torch.Tensor, feats: torch.Tensor, radius: int):
     """The fused kernel's plain twin: ``(loss, acc)``, streaming over the offsets.
 
-    Forms K and acc in the inputs' dtype and the loss as the kernel does,
-    sum_q [K(q) - <y(q), acc(q)>] with the per-pixel difference and the sum
-    in float64; the loss comes back in the inputs' dtype. Not differentiable.
+    Widens ``y`` to the features' dtype, forms K and acc in it and the loss
+    as the kernel does, sum_q [K(q) - <y(q), acc(q)>] with the per-pixel
+    difference and the sum in float64; the loss comes back in the features'
+    dtype. Not differentiable.
     """
+    y = y.to(feats.dtype)
     b, _, h, w = y.shape
     pad = (radius,) * 4
     y_pad, f_pad = F.pad(y, pad), F.pad(feats, pad)
@@ -86,11 +100,12 @@ def gated_crf_potts_fused_plain(y: torch.Tensor, feats: torch.Tensor, radius: in
 
 
 def _check(y: torch.Tensor, feats: torch.Tensor, radius: int) -> None:
-    for name, t in (("y", y), ("feats", feats)):
+    for name, t, dtypes in (("y", y, Y_DTYPES), ("feats", feats, (torch.float32,))):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            raise ValueError(f"{name} must be {names}, got {t.dtype}")
         if t.ndim != 4 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 4-D (B, C, H, W) tensor")
     if y.device != feats.device:
@@ -111,7 +126,7 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gated_crf_num_tiles.argtypes = [i, i, i]
     lib.gated_crf_num_tiles.restype = i
-    lib.gated_crf_fused.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.gated_crf_fused.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.gated_crf_fused.restype = i
     return lib
 
@@ -124,24 +139,26 @@ def _done_counter(device_index: int, stream: int) -> torch.Tensor:
 
 
 def gated_crf_fused_cuda(y: torch.Tensor, feats: torch.Tensor, radius: int, need_acc: bool = True):
-    """Launch the fused kernel: ``(loss, acc)``, the 0-dim loss and acc
-    (B, C, H, W), or ``(loss, None)`` when ``need_acc`` is false (acc is
-    then formed in registers and not written)."""
+    """Launch the fused kernel: ``(loss, acc)``, the 0-dim float32 loss and
+    float32 acc (B, C, H, W), or ``(loss, None)`` when ``need_acc`` is false
+    (acc is then formed in registers and not written)."""
     _check(y, feats, radius)
     lib = _lib()
     b, c, h, w = y.shape
     stream = torch.cuda.current_stream(y.device).cuda_stream
     partial = torch.empty(lib.gated_crf_num_tiles(b, h, w), device=y.device, dtype=torch.float64)
     loss = torch.empty((), device=y.device, dtype=torch.float32)
-    acc = torch.empty_like(y) if need_acc else None
+    acc = torch.empty(y.shape, device=y.device, dtype=torch.float32) if need_acc else None
     err = lib.gated_crf_fused(
-        y.data_ptr(), feats.data_ptr(), None if acc is None else acc.data_ptr(),
+        y.data_ptr(), int(y.dtype == torch.bfloat16), feats.data_ptr(),
+        None if acc is None else acc.data_ptr(),
         partial.data_ptr(), _done_counter(y.device.index, stream).data_ptr(), loss.data_ptr(),
         b, c, feats.shape[1], h, w, radius, y.device.index, stream,
     )
     if err != 0:
         raise RuntimeError(f"gated_crf_fused launch failed with CUDA error {err}")
     launches["gated_crf"] += 1
+    launches_by_dtype[str(y.dtype).replace("torch.", "")] += 1
     return loss, acc
 
 
@@ -150,14 +167,16 @@ class _GatedCRFPotts(torch.autograd.Function):
     def forward(ctx, y, feats, radius):
         loss, acc = gated_crf_fused_cuda(y, feats, radius)
         ctx.save_for_backward(acc)
+        ctx.y_dtype = y.dtype
         return loss
 
     @staticmethod
     def backward(ctx, g):
         (acc,) = ctx.saved_tensors
         b, _, h, w = acc.shape
-        # out of place: the saved acc must outlive a backward (retain_graph)
-        return acc * (g * (-2.0 / (b * h * w))), None, None
+        # out of place: the saved acc must outlive a backward (retain_graph);
+        # formed in float32, then rounded to y's dtype
+        return (acc * (g * (-2.0 / (b * h * w)))).to(ctx.y_dtype), None, None
 
 
 def _gated_crf_potts_kernel(y: torch.Tensor, feats: torch.Tensor, radius: int) -> torch.Tensor:

@@ -136,11 +136,18 @@ def _filter_core(x, logw, parent_pos, size):
 
 
 class TreeFilterRefine(torch.autograd.Function):
-    """y = (M x) / (M 1) over DFS-ordered nodes; gradients to x and logw."""
+    """y = (M x) / (M 1) over DFS-ordered nodes; gradients to x and logw.
+
+    A bf16 ``x`` (the softmax of bf16 logits under AMP) is widened to
+    ``logw``'s fp32 on entry, so y is fp32, the type JAX's promotion gives
+    the filter's sums; each gradient comes back in its input's dtype.
+    """
 
     @staticmethod
     def forward(ctx, x, logw, parent_pos, size):
         calls["tree_filter_fwd"] += 1
+        ctx.x_dtype = x.dtype
+        x = x.to(logw.dtype)
         C = x.shape[-1]
         xs = torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
         A, F = _filter_core(xs, logw, parent_pos, size)
@@ -169,7 +176,7 @@ class TreeFilterRefine(torch.autograd.Function):
             s2 = torch.sum(A_t * (_gather_rows(F_1, p) - wc * A_1)
                            + A_1 * (_gather_rows(F_t, p) - wc * A_t), dim=-1)
             dlogw = _root_zeroed(w * (s1 - s2))
-        return dx, dlogw, None, None
+        return dx.to(ctx.x_dtype), dlogw, None, None
 
 
 def tree_filter_refine(x, logw, parent_pos, size):

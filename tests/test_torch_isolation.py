@@ -39,6 +39,9 @@ def test_port_files_were_found():
 def test_port_files_include_every_package_of_the_port():
     found = {p.parent.name for p in PORT_FILES}
     assert {"federation", "data", "evaluation", "utils", "engine", "ops", "cli", "models"} <= found
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"fedicra_torch/models/pnet.py", "fedicra_torch/models/efficientunet.py",
+            "fedicra_torch/ops/activations.py"} <= names
 
 
 def _entry_calls(tmp_path):
@@ -57,12 +60,20 @@ def _entry_calls(tmp_path):
 
     cfg = TrainConfig.for_task("odoc", img_size=32, batch_size=2, tree_loss_weight=0.0)
     model = net_factory("unet_lc_multihead", in_chns=3, class_num=3)
+    amp_cfg = cfg.replace(amp=True)
+    eff_cfg = TrainConfig.for_task("odoc", img_size=32, batch_size=2, model="efficient_unet",
+                                   strategy="FedAvg", procedure="pce")
     split = make_synthetic_split(2, 32, 32, 3, 3, seed=0, sparse=False)
     sd = model.state_dict()
     names = {n for n, _ in model.named_parameters()}
     return model, {
         "make_round_fn": lambda: trainer.make_round_fn(model, cfg),
+        "make_round_fn amp": lambda: trainer.make_round_fn(model, amp_cfg),
         "init_client_state": lambda: trainer.init_client_state(model, cfg),
+        "init_client_state pnet": lambda: trainer.init_client_state(
+            net_factory("pnet", in_chns=3, class_num=3), cfg.replace(model="pnet")),
+        "init_client_state efficient_unet": lambda: trainer.init_client_state(
+            net_factory("efficient_unet", in_chns=3, class_num=3), eff_cfg),
         "build_experiment": lambda: build_experiment(cfg, synthetic=True, limit_per_client=2),
         "EpochBatcher": lambda: EpochBatcher(split, 2, 3, "odoc"),
         "evaluate_client": lambda: evaluate_client(
@@ -74,6 +85,17 @@ def _entry_calls(tmp_path):
         "cli.train": lambda: train_cli.main(
             ["--synthetic", "--img_size", "32", "--batch_size", "2", "--limit_per_client", "2",
              "--snapshot_root", str(tmp_path)]),
+        "cli.train amp": lambda: train_cli.main(
+            ["--synthetic", "--img_size", "32", "--batch_size", "2", "--limit_per_client", "2",
+             "--amp", "1", "--snapshot_root", str(tmp_path)]),
+        "cli.train pnet": lambda: train_cli.main(
+            ["--synthetic", "--img_size", "32", "--batch_size", "2", "--limit_per_client", "2",
+             "--model", "pnet", "--strategy", "FedAvg", "--procedure", "pce",
+             "--snapshot_root", str(tmp_path)]),
+        "cli.train efficient_unet": lambda: train_cli.main(
+            ["--synthetic", "--img_size", "32", "--batch_size", "2", "--limit_per_client", "2",
+             "--model", "efficient_unet", "--strategy", "FedAvg", "--procedure", "pce",
+             "--snapshot_root", str(tmp_path)]),
         "cli.test.load_test_weights": lambda: test_cli.load_test_weights(
             str(tmp_path / "exp"), "client0"),
     }
@@ -81,7 +103,9 @@ def _entry_calls(tmp_path):
 
 @pytest.mark.parametrize(
     "entry", ["make_round_fn", "init_client_state", "build_experiment", "EpochBatcher",
-              "evaluate_client", "train_centralized", "cli.train", "cli.test.load_test_weights"]
+              "evaluate_client", "train_centralized", "cli.train", "cli.test.load_test_weights",
+              "make_round_fn amp", "init_client_state pnet", "init_client_state efficient_unet",
+              "cli.train amp", "cli.train pnet", "cli.train efficient_unet"]
 )
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -45,6 +45,26 @@ def test_plain_twin_is_what_cpu_tensors_get():
     assert gated_crf_cuda.launches["gated_crf"] == 0
 
 
+def test_plain_twin_widens_bf16_y():
+    """A bf16 ``y`` on the CPU takes the twin on ``y.float()``; its gradient
+    comes back bf16, the fp32 gradient rounded."""
+    rng = np.random.default_rng(2)
+    y = torch.softmax(torch.tensor(rng.normal(size=(2, 3, 9, 11)), dtype=torch.float32), 1)
+    f = torch.tensor(rng.uniform(size=(2, 5, 9, 11)), dtype=torch.float32)
+    y16 = y.to(torch.bfloat16).requires_grad_(True)
+    y32 = y16.detach().float().requires_grad_(True)
+    gated_crf_cuda.reset_launches()
+    got, want = gated_crf_cuda.gated_crf_potts(y16, f, 3), gated_crf_cuda.gated_crf_potts(y32, f, 3)
+    assert got.dtype == torch.float32 and got.item() == want.item()
+    got.backward()
+    want.backward()
+    assert y16.grad.dtype == torch.bfloat16 and torch.equal(y16.grad, y32.grad.to(torch.bfloat16))
+    assert gated_crf_cuda.launches == {"gated_crf": 0}
+    loss, acc = gated_crf_cuda.gated_crf_potts_fused_plain(y16.detach(), f, 3)
+    loss32, acc32 = gated_crf_cuda.gated_crf_potts_fused_plain(y32.detach(), f, 3)
+    assert loss.dtype == torch.float32 and torch.equal(loss, loss32) and torch.equal(acc, acc32)
+
+
 def _confident_inputs(rng, b, c, h, w):
     """Near one-hot maps over smooth class regions and the gated CRF's
     features of a smooth image, where K(q) and <y(q), acc(q)> nearly cancel."""
@@ -89,6 +109,64 @@ def test_kernel_matches_plain_twin(cuda_device, b, c, nf, h, w, r, confident):
     # no float atomics: the same input gives the bit-identical loss and acc
     loss2, acc2 = gated_crf_cuda.gated_crf_fused_cuda(y.detach(), f, r)
     assert torch.equal(loss, got.detach()) and torch.equal(loss2, loss) and torch.equal(acc2, acc)
+
+
+KERNEL_SHAPES = [
+    (2, 3, 5, 37, 70, 5, False), (1, 2, 3, 9, 33, 2, False), (3, 4, 3, 16, 16, 1, False),
+    (12, 3, 5, 64, 64, 5, False), (2, 4, 5, 40, 72, 4, False), (2, 3, 5, 37, 70, 5, True),
+    (12, 3, 5, 64, 64, 5, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, c, nf, h, w, r, confident", KERNEL_SHAPES)
+def test_bf16_entry_equals_the_fp32_launch_on_the_widened_y(cuda_device, b, c, nf, h, w, r, confident):
+    """A bf16 ``y`` (AMP) is widened as the kernel stages it: loss and acc
+    equal an fp32 launch on ``y.float()`` bit for bit; dL/dy comes back bf16,
+    the fp32 one rounded; one launch a forward (counted as bf16), none in
+    the backward."""
+    rng = np.random.default_rng(b * 100 + h + 1)
+    if confident:
+        logits, f = _confident_inputs(rng, b, c, h, w)
+    else:
+        logits, f = rng.normal(size=(b, c, h, w)), rng.uniform(size=(b, nf, h, w))
+    f = torch.tensor(f, dtype=torch.float32, device=cuda_device)
+    y16 = torch.softmax(torch.tensor(logits, dtype=torch.float32, device=cuda_device), 1).to(torch.bfloat16)
+    loss16, acc16 = gated_crf_cuda.gated_crf_fused_cuda(y16, f, r)
+    loss32, acc32 = gated_crf_cuda.gated_crf_fused_cuda(y16.float(), f, r)
+    assert acc16.dtype == torch.float32 and torch.equal(loss16, loss32) and torch.equal(acc16, acc32)
+    y_b = y16.clone().requires_grad_(True)
+    y_f = y16.float().requires_grad_(True)
+    gated_crf_cuda.reset_launches()
+    got = gated_crf_cuda.gated_crf_potts(y_b, f, r)
+    assert gated_crf_cuda.launches_by_dtype == {"float32": 0, "bfloat16": 1}
+    got.backward()
+    torch.cuda.synchronize()
+    assert gated_crf_cuda.launches == {"gated_crf": 1}
+    gated_crf_cuda.gated_crf_potts(y_f, f, r).backward()
+    assert y_b.grad.dtype == torch.bfloat16
+    assert torch.equal(y_b.grad, y_f.grad.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_bf16_no_grad_launches_once_and_writes_no_acc(cuda_device):
+    rng = np.random.default_rng(9)
+    y = torch.softmax(torch.tensor(rng.normal(size=(4, 3, 64, 64)), dtype=torch.float32,
+                                   device=cuda_device), 1).to(torch.bfloat16).requires_grad_(True)
+    f = torch.tensor(rng.uniform(size=(4, 5, 64, 64)), dtype=torch.float32, device=cuda_device)
+    with_grad = gated_crf_cuda.gated_crf_potts(y, f, 5).detach()
+    torch.cuda.synchronize()
+    gated_crf_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    with torch.no_grad():
+        got = gated_crf_cuda.gated_crf_potts(y, f, 5)
+    torch.cuda.synchronize()
+    assert gated_crf_cuda.launches == {"gated_crf": 1}
+    assert gated_crf_cuda.launches_by_dtype == {"float32": 0, "bfloat16": 1}
+    # no (B, C, H, W) float32 acc was allocated
+    assert torch.cuda.max_memory_allocated(cuda_device) - base < y.numel() * 4
+    assert not got.requires_grad and torch.equal(got, with_grad)
 
 
 @pytest.mark.cuda
@@ -138,6 +216,8 @@ def test_kernel_refuses_unsupported_shapes(cuda_device):
         gated_crf_cuda.gated_crf_fused_cuda(y[:, :3].contiguous(), f[:, :4].contiguous(), 2)
     with pytest.raises(ValueError, match="float32"):
         gated_crf_cuda.gated_crf_fused_cuda(y[:, :3].double().contiguous(), f.double(), 2)
+    with pytest.raises(ValueError, match="feats must be float32"):
+        gated_crf_cuda.gated_crf_fused_cuda(y[:, :3].contiguous(), f.to(torch.bfloat16), 2)
 
 
 def test_gaussian_wrapper_refuses_cpu_tensors_before_launching():

@@ -288,5 +288,11 @@ def test_non_lc_models_ignore_emb_idx(model_type):
 
 @pytest.mark.parametrize("model_type", ["pnet", "efficient_unet"])
 def test_unported_types_name_the_roadmap(model_type):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_net_factory(model_type)
+    """The last two types are ported (tests/test_torch_models_rest.py): the
+    factory builds them, and an unknown type still raises."""
+    from fedicra_torch.models import MODEL_TYPES
+
+    assert model_type in MODEL_TYPES
+    assert isinstance(port_net_factory(model_type, in_chns=3, class_num=3), torch.nn.Module)
+    with pytest.raises(ValueError, match="unknown net_type"):
+        port_net_factory(model_type + "_x")

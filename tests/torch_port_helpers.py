@@ -8,6 +8,8 @@ frameworks.
 
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ from fedicra_torch.engine.config import TrainConfig as PortConfig
 from fedicra_torch.models import net_factory as port_net_factory
 from fedicra_tpu.engine import TrainConfig
 from fedicra_tpu.models import net_factory
+from fedicra_tpu.models.blocks import set_compute_dtype
 
 NO_DROPOUT = (0.0,) * 5
 IMG = 32
@@ -108,3 +111,40 @@ def assert_trees_close(got, want, **tol):
 
 def t(a, **kw):
     return torch.tensor(np.array(a), **kw)
+
+
+@contextlib.contextmanager
+def jax_amp():
+    """JAX's AMP (bf16 convolutions) within the block."""
+    set_compute_dtype(jnp.bfloat16)
+    try:
+        yield
+    finally:
+        set_compute_dtype(None)
+
+
+def compile_exact(fn, *args):
+    """``jax.jit(fn)`` compiled to round every bf16 operation as written."""
+    return jax.jit(fn).lower(*args).compile(compiler_options={"xla_allow_excess_precision": False})
+
+
+def output_leaves(out):
+    """(name, leaf) of a model's output dict, in a fixed order; None kept."""
+    for key in sorted(out):
+        val = out[key]
+        if isinstance(val, (list, tuple)):
+            for i, a in enumerate(val):
+                yield f"{key}[{i}]", a
+        else:
+            yield key, val
+
+
+def dtype_name(a):
+    if a is None:
+        return None
+    return str(a.dtype).replace("torch.", "")
+
+
+def as_float32(a):
+    """A torch or JAX array as a float32 numpy array."""
+    return np.asarray(a.detach().float() if isinstance(a, torch.Tensor) else jnp.asarray(a, jnp.float32))
