@@ -44,11 +44,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    on the widened input, bit for bit);
 11. the last two model types through the train CLI (``[models]``): ``pnet``
    under ``--amp 1`` and ``efficient_unet`` under ``--amp 1`` with a B3
-   ``--encoder_weights`` file, 1 round of 5 full-width ODOC clients, pCE.
+   ``--encoder_weights`` file, 1 round of 5 full-width ODOC clients, pCE;
+12. the runner's ``--distributed`` route (``[distributed]``): 9's route-1
+   round with 1 server and 5 client processes on the card over TCP, its
+   losses against route 1's, each process's peak memory;
+13. the permutohedral-lattice dense CRF (``[lattice]``, host C++) at 3's
+   shape against the exact loss from the Gaussian-filter kernel, timed;
+14. ensemble uncertainty (``[uncertainty]``): full-width
+   ``unet_lc_multihead`` at 12 x 384^2, T = 8, timed, against the CPU;
+15. the full gated-CRF surface (``[gated-crf-surface]``, plain PyTorch):
+   tied to the CUDA kernel through an all-ones ``mask_dst``, masks,
+   compatibility and two kernels against the CPU, forward and backward
+   timed.
 
 Each path (3's loss, 6, 7, 8, each route of 9 and 11, and 10) runs with the
-launch counters set to 0 just before it and read just after. The last lines are the card's name and power
-limit, one JSON line of per-kernel numbers, and {"ok": true, "device": {...}}.
+launch counters set to 0 just before it and read just after. 13-15 launch
+a kernel of the port only as the reference they are compared with (13 the
+Gaussian filter, 15 the gated CRF); 12's processes launch the gated-CRF
+kernel, which their CUDA tensors cannot bypass, and this process cannot
+count. The last lines are the card's name and power limit, one JSON line
+of per-kernel numbers, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -58,6 +73,8 @@ import io
 import json
 import math
 import os
+import signal
+import socket
 import statistics
 import struct
 import subprocess
@@ -73,6 +90,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # the headline configuration: ODOC at 384^2, batch 12
 BATCH, IMG = 12, 384
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg: str) -> None:
@@ -982,15 +1000,25 @@ def _reset_kernel_counts() -> None:
     tree_filter.reset_calls()
 
 
+def federated_round_flags(img: int = IMG, batch: int = BATCH) -> list:
+    """The flags of FedICRA "ours" rounds of 5 full-width ODOC clients x 2
+    steps (1 head, 1 body) with evaluation every round, 2 rounds in all,
+    which both the train CLI and the runner take: ``phase_cli``'s route 1
+    (which stops after the first) and ``phase_distributed`` (both)."""
+    return ["--img_class", "odoc", "--strategy", "FedICRA", "--procedure", "ours",
+            "--model", "unet_lc_multihead", "--img_size", str(img), "--batch_size", str(batch),
+            "--iters", "2", "--rep_iters", "1", "--eval_iters", "2", "--max_iterations", "4"]
+
+
 def phase_cli(dev, fed_snapshot: str, img: int = IMG, batch: int = BATCH,
-              faz_img: int = 256) -> None:
+              faz_img: int = 256) -> dict:
     """The CLIs as a user runs them, in-process in a temporary directory.
 
     ``fed_snapshot`` is ``phase_federation``'s snapshot directory, which the
     test CLI's route reads. Each route runs with the launch counters set to 0 just before it and
     read just after, timed by the port's StepTimer (card synchronised); what
     the CLIs print is captured, and their last line is checked to be the
-    JSON they return."""
+    JSON they return. Returns route 1's result."""
     from fedicra_torch.cli import runner as runner_cli
     from fedicra_torch.cli import test as test_cli
     from fedicra_torch.cli import train as train_cli
@@ -1027,14 +1055,14 @@ def phase_cli(dev, fed_snapshot: str, img: int = IMG, batch: int = BATCH,
         log(f"[cli] {name}: total_loss per client {[round(v, 6) for v in losses]}")
 
     with tempfile.TemporaryDirectory(prefix="fedicra_cli_") as tmp:
-        # 1. the federated train CLI: 1 round of 5 full-width clients, 2 steps each
+        # 1. the federated train CLI: 1 round of 5 full-width clients, 2 steps
+        #    each, on the synthetic splits' default 24 images a client (those
+        #    the runner's routes train on, [distributed] among them)
         snap_root = os.path.join(tmp, "model")
-        fed_argv = ["--synthetic", "--img_class", "odoc", "--strategy", "FedICRA",
-                    "--procedure", "ours", "--model", "unet_lc_multihead", "--img_size", str(img),
-                    "--batch_size", str(batch),
-                    "--iters", "2", "--rep_iters", "1", "--eval_iters", "2", "--stop_after", "2",
-                    "--limit_per_client", "12", "--snapshot_root", snap_root, "--exp", "fed"]
+        fed_argv = ["--synthetic", "--snapshot_root", snap_root, "--exp", "fed",
+                    *federated_round_flags(img, batch), "--stop_after", "2"]
         result, lines, counts, seconds = route("cli.train federated", lambda: train_cli.main(fed_argv))
+        fed_result = {**result, "seconds": seconds}
         printed_json(lines, result, "cli.train federated")
         steps = 5 * 2
         log(f"[cli] cli.train federated: {seconds / steps:.3f} s per local step (wall / {steps}, "
@@ -1147,6 +1175,7 @@ def phase_cli(dev, fed_snapshot: str, img: int = IMG, batch: int = BATCH,
         if not os.path.exists(os.path.join(tmp, "model", "smoke", "metrics.jsonl")):
             raise AssertionError("the runner wrote no ../model/smoke/metrics.jsonl")
     log("[cli] " + "; ".join(f"{k} {v['total_s']:.3f} s" for k, v in timer.summary().items()))
+    return fed_result
 
 
 def phase_models(dev, img: int = IMG, batch: int = BATCH) -> None:
@@ -1239,6 +1268,269 @@ def phase_models(dev, img: int = IMG, batch: int = BATCH) -> None:
     log("[models] " + "; ".join(f"{k} {v['total_s']:.3f} s" for k, v in timer.summary().items()))
 
 
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def empty_cache_cost(dev, reps: int = 3):
+    """What ``serve_client``'s ``torch.cuda.empty_cache()`` after each reply
+    costs a client: a 2-step local round of the distributed phase's
+    configuration (``main_path_setup``) after a warm round with the cache
+    kept, against the same round right after ``empty_cache()``, in turns.
+    Returns (kept s, emptied s, empty_cache s) per turn."""
+    cfg, cid, model, state, round_fn, batches = main_path_setup(dev, iters=2, rep_iters=1)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    timed(lambda: round_fn(state, batches, cid))  # warm-up
+    kept, emptied, frees = [], [], []
+    for _ in range(reps):
+        kept.append(timed(lambda: round_fn(state, batches, cid)))
+        frees.append(timed(torch.cuda.empty_cache))
+        emptied.append(timed(lambda: round_fn(state, batches, cid)))
+    del model, state, round_fn, batches
+    torch.cuda.empty_cache()
+    return kept, emptied, frees
+
+
+def phase_distributed(dev, route1: dict, img: int = IMG, batch: int = BATCH,
+                      timeout_s: float = 600.0) -> None:
+    """The runner's ``--distributed`` route as a user starts it, from a
+    temporary working directory: 1 server and 5 client processes on the
+    card, over TCP, for 2 rounds whose first is ``phase_cli`` route 1's.
+    Every process must exit 0 (the runner raises otherwise), each client's
+    first-round fit loss must lie within rtol 1e-3 of route 1's, and every
+    metric must be finite (hd95 aside, NaN where a mask is empty, as in
+    JAX). Prints each round's wall time and each process's peak memory, as
+    the processes report them; the children's kernel launches cannot be
+    counted from here (their CUDA tensors have no route but the kernel).
+    First, ``empty_cache_cost``: what the clients' empty_cache after each
+    reply costs a round."""
+    kept, emptied, frees = empty_cache_cost(dev)
+    log(f"[distributed] a client's 2-step round with its cache kept {[round(x, 4) for x in kept]} s, "
+        f"right after empty_cache {[round(x, 4) for x in emptied]} s; empty_cache itself "
+        f"{[round(1e3 * x, 3) for x in frees]} ms (in turns)")
+    torch.cuda.empty_cache()  # the card's memory, for the six processes
+    with tempfile.TemporaryDirectory(prefix="fedicra_dist_") as tmp:
+        run_dir = os.path.join(tmp, "run")
+        os.makedirs(run_dir)
+        cmd = [sys.executable, "-m", "fedicra_torch.cli.runner", "--exp", "dist",
+               "--synthetic", "--distributed", "--port", str(free_port()), *federated_round_flags(img, batch)]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+        log(f"[distributed] {' '.join(cmd[1:])}")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=run_dir, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=timeout_s)
+        finally:
+            if proc.poll() is None:  # stop the runner and every process it started
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        wall = time.perf_counter() - t0
+        lines = out.splitlines()
+        peaks = [line for line in lines if "peak memory" in line]
+        for line in lines:
+            if line.startswith(("[server]", "[client", "[round", "Traceback", "RuntimeError")):
+                log(f"[distributed] {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"--distributed exited with code {proc.returncode}:\n" + "\n".join(lines[-40:]))
+        if len(peaks) != 6:
+            raise AssertionError(f"expected 6 processes to report their peak memory, got {peaks}")
+        with open(os.path.join(tmp, "model", "dist", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    if [r["step"] for r in records] != [2, 2, 4, 4]:
+        raise AssertionError(f"metrics.jsonl steps {[r['step'] for r in records]}, expected 2 rounds")
+    fit = records[0]  # round 1's fit record
+    gaps = []
+    for c in range(5):
+        got, want = fit[f"client_{c}_total_loss"], route1["final"][f"client_{c}_total_loss"]
+        gaps.append(abs(got - want) / abs(want))
+        log(f"[distributed] client {c}: total_loss {got:.9g}, in-process (cli route 1) {want:.9g}, "
+            f"relative gap {gaps[-1]:.3g}")
+    server = next(line for line in lines if line.startswith("[server] run"))
+    log(f"[distributed] 1 server + 5 clients: command {wall:.3f} s (process start-up, data and "
+        f"connection included); {server[len('[server] '):]} (a round: 5 fits and 5 evaluations); "
+        f"the in-process round (cli route 1, its route's wall) took {route1['seconds']:.3f} s")
+    if max(gaps) > 1e-3:
+        raise AssertionError(f"distributed losses {max(gaps):.3g} from the in-process route's")
+    nonfinite = sorted({k for r in records for k, v in r.items()
+                        if isinstance(v, float) and not math.isfinite(v)})
+    log(f"[distributed] {len(records)} records, {sum(len(r) for r in records)} values; "
+        f"non-finite: {nonfinite}")
+    if any("hd95" not in k for k in nonfinite):
+        raise AssertionError(f"non-finite metrics besides hd95: {nonfinite}")
+
+
+def phase_lattice(dev) -> None:
+    """``dense_crf_loss_lattice`` at the dense-CRF shape (12 x 384^2 inputs,
+    N = 192^2, d = 5, C = 3) against the exact loss and gradient from the
+    Gaussian-filter kernel on the lattice's own downscaled inputs: ratio in
+    0.3-1.7, gradients' cosine above 0.9 (fedicra_tpu's bounds,
+    tests/test_permutohedral.py). The lattice runs on the host (one thread
+    an image); its time is the host clock's, transfers included."""
+    from fedicra_torch.losses.dense_crf import dense_crf_loss, dense_crf_loss_lattice, resize_nearest_floor
+    from fedicra_torch.losses.tree_energy import resize_linear
+    from fedicra_torch.ops import gaussian_filter_cuda as gf
+    from fedicra_torch.ops.permutohedral import permutohedral_filter
+
+    images, logits, rois, _, _, _ = gaussian_filter_inputs(dev)
+    probs = torch.softmax(logits, -1)
+    b, h, w, c = probs.shape
+    oh, ow = h // 2, w // 2
+    t0 = time.perf_counter()
+    approx, d_probs = dense_crf_loss_lattice(images, probs, rois)
+    first_s = time.perf_counter() - t0  # the library's first use builds it
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dense_crf_loss_lattice(images, probs, rois)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+
+    # the exact loss and gradient on the same downscaled inputs (floor nearest)
+    img_s = resize_nearest_floor(images * 255.0, (oh, ow))
+    rois_s = resize_nearest_floor(rois[..., None], (oh, ow))
+    s = (resize_linear(probs, (oh, ow)) * rois_s).reshape(b, oh * ow, c).contiguous()
+    feats = gf.bilateral_features(img_s, 15.0, 50.0).contiguous()
+    Ks = gf.gaussian_filter_cuda(feats, s)
+    exact = (-2e-9 * (s.double() * Ks.double()).sum() / b).item()
+    g_exact = ((-2.0 * 2e-9 / b) * rois_s.reshape(b, oh * ow, 1) * Ks).reshape(d_probs.shape)
+    cos = (g_exact.double() * d_probs.double()).sum() / (g_exact.double().norm() * d_probs.double().norm())
+    filter_s = []
+    feats_host, s_host = feats.cpu(), s.cpu()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        permutohedral_filter(feats_host, s_host)
+        filter_s.append(time.perf_counter() - t0)
+    log(f"[lattice] B={b} N={oh * ow} d={feats.shape[2]} C={c}: loss lattice {approx:.9g}, exact "
+        f"{exact:.9g} (ratio {approx / exact:.4f}); exact dense_crf_loss (nearest-exact inputs) "
+        f"{dense_crf_loss(images, probs, rois).item():.9g}; gradient cosine {cos.item():.6f}")
+    log(f"[lattice] dense_crf_loss_lattice {1e3 * statistics.median(times):.3f} ms per call "
+        f"(runs {[round(1e3 * t, 3) for t in times]}; first call {1e3 * first_s:.3f} ms, g++ build "
+        f"included); permutohedral_filter alone on host tensors "
+        f"{1e3 * statistics.median(filter_s):.3f} ms; {os.cpu_count()} host cores")
+    if not (approx < 0 and exact < 0 and 0.3 < approx / exact < 1.7):
+        raise AssertionError(f"lattice loss {approx!r} vs exact {exact!r}")
+    if not (cos > 0.9 and torch.isfinite(d_probs).all() and d_probs.device == probs.device):
+        raise AssertionError(f"lattice gradient: cosine {cos.item()!r} to the exact one")
+
+
+def phase_uncertainty(dev) -> None:
+    """``batch_uncertainty`` of full-width ``unet_lc_multihead`` on 12 x 384^2
+    ODOC images, T = 8, on the card: timed; the entropy in [-1e-5, ln 3];
+    and on a 2-image slice with the same draws, equal to the CPU's at rtol
+    1e-4."""
+    from fedicra_torch.engine.config import TrainConfig
+    from fedicra_torch.engine.trainer import init_client_state
+    from fedicra_torch.evaluation.uncertainty import batch_uncertainty, draw_uncertainty
+    from fedicra_torch.models import net_factory
+
+    cfg = TrainConfig.for_task("odoc", model="unet_lc_multihead", img_size=IMG, batch_size=BATCH)
+    model = net_factory("unet_lc_multihead", in_chns=3, class_num=3, num_clients=5)
+    state = init_client_state(model, cfg, device=dev)
+    images = torch.as_tensor(smooth_images(np.random.default_rng(6), BATCH, IMG, IMG), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    draws = draw_uncertainty(images.shape, 8, gen)
+    torch.cuda.reset_peak_memory_stats()
+    value = batch_uncertainty(model, state.params, state.batch_stats, images, draws=draws).item()
+    ms = cuda_median_ms(lambda: batch_uncertainty(model, state.params, state.batch_stats, images,
+                                                  draws=draws), reps=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    small = draw_uncertainty(images[:2].shape, 8, gen)
+    card = batch_uncertainty(model, state.params, state.batch_stats, images[:2], draws=small).item()
+    model_cpu = net_factory("unet_lc_multihead", in_chns=3, class_num=3, num_clients=5)
+    cpu = batch_uncertainty(model_cpu, {k: v.cpu() for k, v in state.params.items()},
+                            {k: v.cpu() for k, v in state.batch_stats.items()}, images[:2].cpu(),
+                            draws=(small[0], small[1].cpu())).item()
+    log(f"[uncertainty] unet_lc_multihead B={BATCH} {IMG}^2 T=8, rotation {draws[0]}: entropy "
+        f"{value:.9g}; {ms:.3f} ms per batch; max_memory_allocated {peak:.3f} GiB; 2-image slice "
+        f"(rotation {small[0]}) card {card:.9g} cpu {cpu:.9g}")
+    if not -1e-5 <= value <= math.log(3):
+        raise AssertionError(f"entropy {value!r} outside [-1e-5, ln 3]")
+    if not math.isclose(card, cpu, rel_tol=1e-4):
+        raise AssertionError(f"uncertainty: card {card!r} vs cpu {cpu!r}")
+
+
+def phase_gated_crf_surface(dev) -> None:
+    """The full gated-CRF surface (plain PyTorch) at 12 x 384^2, radius 5:
+    the Potts kernel with an all-ones ``mask_dst`` against the CUDA kernel's
+    loss (rtol 1e-5); masked, compatibility and two-kernel runs on the card
+    against the CPU on one image (rtol 1e-5); forward and backward timed,
+    peak memory under 8 GiB."""
+    from fedicra_torch.losses.gated_crf import LIVE_KERNEL, gated_crf_loss, gated_crf_loss_auto
+
+    b, c, r = BATCH, 3, 5
+    rng = np.random.default_rng(7)
+    image = torch.as_tensor(smooth_images(rng, b, IMG, IMG), device=dev)
+    logits = torch.as_tensor(rng.normal(size=(b, IMG, IMG, c)).astype(np.float32), device=dev)
+    probs = torch.softmax(logits, -1)
+    mask = rng.choice([1.0, 1.0, 1.0, 0.0, 0.5], size=(b, IMG, IMG)).astype(np.float32)
+    mask[0, :4, :4] = np.nan
+    mask = torch.as_tensor(mask, device=dev)
+    ones = torch.ones((b, IMG, IMG), device=dev)
+
+    kernel = gated_crf_loss_auto(probs, image, radius=r).item()
+    general = gated_crf_loss(probs, image, radius=r, kernels_desc=[LIVE_KERNEL], mask_dst=ones).item()
+    log(f"[gated-crf-surface] Potts, all-ones mask_dst: general path {general:.9g}, CUDA kernel "
+        f"{kernel:.9g} (relative gap {abs(general - kernel) / abs(kernel):.3g})")
+    if not math.isclose(general, kernel, rel_tol=1e-5):
+        raise AssertionError(f"general path {general!r} vs kernel {kernel!r}")
+
+    runs = {
+        "masked": dict(mask_src=mask, mask_dst=mask.flip(1)),
+        "compatibility": dict(compatibility=torch.tensor([[0.0, 1.0, 3.0], [2.0, 0.0, 0.5],
+                                                          [1.0, 1.0, 0.0]])),
+        "two kernels": dict(kernels_desc=[{"weight": 0.7, "xy": 4.0, "rgb": 0.2},
+                                          {"weight": 0.3, "xy": 2.0}]),
+    }
+    for name, kw in runs.items():
+        one = {k: (v[:1] if k.startswith("mask") else v) for k, v in kw.items()}
+        on_card = gated_crf_loss(probs[:1], image[:1], radius=r, **one).item()
+        on_cpu = gated_crf_loss(probs[:1].cpu(), image[:1].cpu(), radius=r,
+                                **{k: (v.cpu() if torch.is_tensor(v) else v) for k, v in one.items()}).item()
+        log(f"[gated-crf-surface] {name}, image 0: card {on_card:.9g} cpu {on_cpu:.9g}")
+        if not math.isclose(on_card, on_cpu, rel_tol=1e-5):
+            raise AssertionError(f"{name}: card {on_card!r} vs cpu {on_cpu!r}")
+
+    full = dict(kernels_desc=runs["two kernels"]["kernels_desc"], mask_src=mask, mask_dst=mask.flip(1),
+                compatibility=runs["compatibility"]["compatibility"])
+    for name, kw in (("Potts, all-ones mask_dst", dict(kernels_desc=[LIVE_KERNEL], mask_dst=ones)),
+                     ("two kernels, both masks, compatibility", full)):
+        lg = logits.clone().requires_grad_(True)
+        fwd, bwd = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(4):
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            events[0].record()
+            loss = gated_crf_loss(torch.softmax(lg, -1), image, radius=r, **kw)
+            events[1].record()
+            loss.backward()
+            events[2].record()
+            events[2].synchronize()
+            fwd.append(events[0].elapsed_time(events[1]))
+            bwd.append(events[1].elapsed_time(events[2]))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[gated-crf-surface] {name} at B={b} {IMG}^2 r={r}: forward "
+            f"{statistics.median(fwd[1:]):.3f} ms, backward {statistics.median(bwd[1:]):.3f} ms "
+            f"(medians of 3 after a warm-up); max_memory_allocated {peak:.3f} GiB")
+        if not (torch.isfinite(lg.grad).all() and lg.grad.abs().max() > 0):
+            raise AssertionError(f"{name}: non-finite or zero gradient")
+        if peak >= 8.0:
+            raise AssertionError(f"{name}: peak memory {peak:.3f} GiB, not under 8")
+
+
 def card_name_and_power() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -1279,9 +1571,15 @@ def main() -> int:
         fed_snapshot = os.path.join(tmp, "federation")
         phase_federation(dev, fed_snapshot)
         torch.cuda.empty_cache()
-        phase_cli(dev, fed_snapshot)
+        route1 = phase_cli(dev, fed_snapshot)
     torch.cuda.empty_cache()
     phase_models(dev)
+    phase_distributed(dev, route1)
+    torch.cuda.empty_cache()
+    phase_lattice(dev)
+    phase_uncertainty(dev)
+    torch.cuda.empty_cache()
+    phase_gated_crf_surface(dev)
 
     print(card_name_and_power())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -16,7 +16,7 @@ Checkpoint split (reference semantics): the SERVER saves the aggregate best
 each CLIENT saves its own state at its own best val_mean_dice
 (flower_common.py:106-114).
 
-Beyond the reference: full resume (server + client states), and
+Beyond the reference: full resume (server + in-process client states), and
 ``run(stop_fn=...)``, which ends the run at a round boundary with a fresh
 resume snapshot.
 """
@@ -67,9 +67,15 @@ class FederatedServer:
         self.current_round = 0  # in global-iteration units
         self.history: List[Dict] = []
 
+    def _local_clients(self) -> List[FederatedClient]:
+        """The clients whose state lives in this process; a remote client
+        (``transport.RemoteClientProxy``) keeps its state in its own."""
+        return [c for c in self.clients if isinstance(c, FederatedClient)]
+
     def _resume_state(self) -> Dict:
-        """Full restart state: server progress + every client's training
-        state and ALA phase. Saved with each periodic checkpoint."""
+        """Full restart state: server progress + the training state and ALA
+        phase of every client held in this process. Saved with each
+        periodic checkpoint."""
         return {
             "server": {"current_round": self.current_round, "best_dice": self.best_dice},
             "global": self.global_payload,
@@ -81,7 +87,7 @@ class FederatedServer:
                     "best_performance": c.best_performance,
                     "rng": c.generator.get_state(),
                 }
-                for c in self.clients
+                for c in self._local_clients()
             },
         }
 
@@ -97,8 +103,10 @@ class FederatedServer:
         self.current_round = int(restored["server"]["current_round"])
         self.best_dice = float(restored["server"]["best_dice"])
         self.global_payload = restored["global"]
-        for c in self.clients:
-            rc = restored["clients"][str(c.cid)]
+        for c in self._local_clients():
+            rc = restored["clients"].get(str(c.cid))
+            if rc is None:  # saved by a run whose client was remote
+                continue
             st = rc["state"]
             c.state.generator.set_state(st["generator"].cpu())
             c.state = ClientState(st["params"], st["batch_stats"], int(st["current_iter"]),

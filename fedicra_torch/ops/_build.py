@@ -9,6 +9,15 @@ with a plain C interface::
 into ``fedicra_torch/_build/`` (ignored by git), named by a hash of the
 source so an edit rebuilds. The sources compile in parallel, one ``nvcc``
 each. A failed build raises; nothing falls back.
+
+Host C++ sources (``csrc/<name>.cpp``, the permutohedral lattice) build
+the same way with g++ and the flags of ``fedicra_tpu/native``::
+
+    g++ -O3 -march=native -funroll-loops -fPIC -shared -std=c++17 -pthread \\
+        -o _build/lib<name>-<hash>.so csrc/<name>.cpp
+
+on first use (``load_host_library``); ``sources()`` lists the CUDA
+sources only.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+GXX_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-fPIC", "-shared", "-std=c++17", "-pthread")
+
 
 def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
@@ -45,19 +56,20 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+def _target(name: str, suffix: str = ".cu") -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}{suffix}").read_bytes()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _compile(name: str) -> str:
-    so = _target(name)
+def _compile(name: str, suffix: str = ".cu") -> str:
+    so = _target(name, suffix)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    compiler = [_nvcc(), *NVCC_FLAGS] if suffix == ".cu" else ["g++", *GXX_FLAGS]
+    cmd = [*compiler, "-o", str(tmp), str(CSRC / f"{name}{suffix}")]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, so)
+        raise RuntimeError(f"{cmd[0]} failed on {name}{suffix} (exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, so)  # atomic: a process building beside this one never loads half a file
     return proc.stdout
 
 
@@ -81,4 +93,15 @@ def load_library(name: str) -> ctypes.CDLL:
     so = _target(name)
     if not so.exists():
         build_all()
+    return ctypes.CDLL(str(so))
+
+
+@functools.cache
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The compiled library of the host source ``csrc/<name>.cpp``, built
+    with g++ first if needed."""
+    so = _target(name, ".cpp")
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        _compile(name, ".cpp")
     return ctypes.CDLL(str(so))

@@ -51,7 +51,7 @@ def reset_launches() -> None:
         launches_by_dtype[k] = 0
 
 
-def _windows(radius: int, h: int, w: int):
+def offset_windows(radius: int, h: int, w: int):
     """The index of each offset's window into (r-padded) planes, o != 0."""
     r = radius
     for dy in range(-r, r + 1):
@@ -69,7 +69,7 @@ def gated_crf_potts_plain(y: torch.Tensor, feats: torch.Tensor, radius: int) -> 
     pad = (radius,) * 4
     y_pad, f_pad = F.pad(y, pad), F.pad(feats, pad)
     total = y.new_zeros(())
-    for win in _windows(radius, h, w):
+    for win in offset_windows(radius, h, w):
         k = torch.exp(-0.5 * ((f_pad[win] - feats) ** 2).sum(dim=1))
         cross = (y_pad[win] * y).sum(dim=1)
         total = total + (k * (1.0 - cross)).sum()
@@ -91,7 +91,7 @@ def gated_crf_potts_fused_plain(y: torch.Tensor, feats: torch.Tensor, radius: in
     y_pad, f_pad = F.pad(y, pad), F.pad(feats, pad)
     k_sum = y.new_zeros((b, h, w))
     acc = torch.zeros_like(y)
-    for win in _windows(radius, h, w):
+    for win in offset_windows(radius, h, w):
         k = torch.exp(-0.5 * ((f_pad[win] - feats) ** 2).sum(dim=1))
         k_sum += k
         acc += k[:, None] * y_pad[win]

@@ -82,11 +82,18 @@ def test_missing_data_root_refuses_before_any_model(tmp_path, monkeypatch, centr
 
 
 def test_sharded_and_distributed_are_refused(tmp_path, monkeypatch):
+    """--sharded (TPU mesh only) is refused. --distributed runs 1 server and
+    N client processes (tests/test_torch_distributed.py); without a card,
+    and no device named, it is refused before any model or process."""
+    import multiprocessing
+
     _refuse_models(monkeypatch)
     with pytest.raises(NotImplementedError, match="sharded"):
         port_train.main(["--synthetic", "--sharded", "--device", "cpu",
                          "--snapshot_root", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="distributed"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(multiprocessing, "get_context", lambda method: pytest.fail("spawned"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         port_runner.main(["--procedure", "pce", "--exp", "x", "--synthetic", "--distributed"])
 
 

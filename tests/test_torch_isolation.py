@@ -41,21 +41,27 @@ def test_port_files_include_every_package_of_the_port():
     assert {"federation", "data", "evaluation", "utils", "engine", "ops", "cli", "models"} <= found
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"fedicra_torch/models/pnet.py", "fedicra_torch/models/efficientunet.py",
-            "fedicra_torch/ops/activations.py"} <= names
+            "fedicra_torch/ops/activations.py", "fedicra_torch/federation/transport.py",
+            "fedicra_torch/evaluation/uncertainty.py", "fedicra_torch/ops/permutohedral.py",
+            "fedicra_torch/losses/gated_crf.py", "fedicra_torch/losses/dense_crf.py"} <= names
 
 
 def _entry_calls(tmp_path):
     """Each entry point of the port, called as a user would, without ``device``."""
     import numpy as np
 
+    import socket
+
+    from fedicra_torch.cli import runner as runner_cli
     from fedicra_torch.cli import test as test_cli
     from fedicra_torch.cli import train as train_cli
     from fedicra_torch.data import EpochBatcher, make_synthetic_split
     from fedicra_torch.engine import trainer
     from fedicra_torch.engine.centralized import train_centralized
     from fedicra_torch.engine.config import TrainConfig
-    from fedicra_torch.evaluation import evaluate_client
+    from fedicra_torch.evaluation import evaluate_client, evaluate_uncertainty
     from fedicra_torch.federation import build_experiment
+    from fedicra_torch.federation.transport import RemoteClientProxy, accept_clients
     from fedicra_torch.models import net_factory
 
     cfg = TrainConfig.for_task("odoc", img_size=32, batch_size=2, tree_loss_weight=0.0)
@@ -98,6 +104,13 @@ def _entry_calls(tmp_path):
              "--snapshot_root", str(tmp_path)]),
         "cli.test.load_test_weights": lambda: test_cli.load_test_weights(
             str(tmp_path / "exp"), "client0"),
+        "evaluate_uncertainty": lambda: evaluate_uncertainty(
+            model, {k: v for k, v in sd.items() if k in names},
+            {k: v for k, v in sd.items() if k not in names}, [split.images]),
+        "RemoteClientProxy": lambda: RemoteClientProxy(socket.socket(), 0, 1),
+        "accept_clients": lambda: accept_clients("127.0.0.1", 0, 1, timeout=0.1),
+        "cli.runner --distributed": lambda: runner_cli.main(
+            ["--procedure", "pce", "--exp", "x", "--synthetic", "--distributed"]),
     }
 
 
@@ -105,7 +118,9 @@ def _entry_calls(tmp_path):
     "entry", ["make_round_fn", "init_client_state", "build_experiment", "EpochBatcher",
               "evaluate_client", "train_centralized", "cli.train", "cli.test.load_test_weights",
               "make_round_fn amp", "init_client_state pnet", "init_client_state efficient_unet",
-              "cli.train amp", "cli.train pnet", "cli.train efficient_unet"]
+              "cli.train amp", "cli.train pnet", "cli.train efficient_unet",
+              "evaluate_uncertainty", "RemoteClientProxy", "accept_clients",
+              "cli.runner --distributed"]
 )
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -9,6 +9,7 @@ frameworks.
 from __future__ import annotations
 
 import contextlib
+import socket
 
 import jax
 import jax.numpy as jnp
@@ -148,3 +149,12 @@ def dtype_name(a):
 def as_float32(a):
     """A torch or JAX array as a float32 numpy array."""
     return np.asarray(a.detach().float() if isinstance(a, torch.Tensor) else jnp.asarray(a, jnp.float32))
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that nothing listens on."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
