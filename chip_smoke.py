@@ -20,17 +20,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
 4. the tree-energy chain at the main-path shape: MST, Euler tour and the
    tree filter's forward and backward, each timed per call; one image's MST
    and tree on the card against the same on the CPU, from the same weights;
-5. the "ours" objective (tree term on) on the card against the CPU at a
-   small input;
+5. the "ours" objective (tree term on) and ``treeenergy_add`` on the card
+   against the CPU at a small input;
 6. the tree-off round: one FedICRA local round of "ours" at
    tree_loss_weight=0, full-width unet_lc_multihead for ODOC (384^2, batch
    12, 5 clients, real dropout rates), 1 head step then 1 body step;
 7. the main path: the same round at the default tree_loss_weight=0.1,
-   2 head steps then 2 body steps;
+   2 head steps then 2 body steps; then one ``treeenergy_add`` step at that
+   shape;
 8. the federation: build_experiment and FederatedServer.run for 2 rounds
    of FedICRA "ours" at the same width, 5 clients on synthetic ODOC data,
    ALA's first-run loop in round 2, the evaluation, checkpoints and a
-   resume (``phase_federation``);
+   resume (``phase_federation``), then one FedAdam round of 2 clients x 1
+   step against FedAdam's update in float64;
+8b. the SPMD federation (``[sharded]``): 8's run on the (1, 1) mesh,
+   its losses against 8's; the mesh (1, 2) as two gloo ranks on the card,
+   batch 6 each, the first step's loss and BatchNorm statistics against
+   (1, 1)'s; (2, 1) over NCCL when there are two cards;
 9. the user's entry points, in-process in a temporary directory
    (``phase_cli``): the federated train CLI (1 round of "ours" at the same
    width), the test CLI's loader, inference, CSVs and PNGs on phase 8's
@@ -57,8 +63,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    compatibility and two kernels against the CPU, forward and backward
    timed.
 
-Each path (3's loss, 6, 7, 8, each route of 9 and 11, and 10) runs with the
-launch counters set to 0 just before it and read just after. 13-15 launch
+Each path (3's loss, 6, 7 and its treeenergy_add step, 8 and its FedAdam
+round, 8b's (1, 1) run and each of its ranks, each route of 9 and 11, and
+10) runs with the launch counters set to 0 just before it and read just
+after. 13-15 launch
 a kernel of the port only as the reference they are compared with (13 the
 Gaussian filter, 15 the gated CRF); 12's processes launch the gated-CRF
 kernel, which their CUDA tensors cannot bypass, and this process cannot
@@ -74,7 +82,6 @@ import json
 import math
 import os
 import signal
-import socket
 import statistics
 import struct
 import subprocess
@@ -586,9 +593,10 @@ def phase_tree_chain(dev):
 
 
 def phase_small_agreement(dev):
-    """The objective (tree term on) on the card against the CPU (plain twins)."""
+    """The objective (tree term on), then ``treeenergy_add`` on the same
+    weights, on the card against the CPU (plain twins)."""
     from fedicra_torch.engine.config import TrainConfig
-    from fedicra_torch.engine.objective import ours_loss
+    from fedicra_torch.engine.objective import ours_loss, treeenergy_add_loss
     from fedicra_torch.engine.trainer import init_client_state
     from fedicra_torch.models import net_factory
 
@@ -606,11 +614,14 @@ def phase_small_agreement(dev):
                  "label": torch.as_tensor(label, device=device)}
         loss, metrics = ours_loss(model, batch, 1, cfg)
         loss.backward()
+        _, add = treeenergy_add_loss(model, batch, 1, cfg.replace(procedure="treeenergy_add"))
         results[str(device)] = (
             {k: v.item() for k, v in metrics.items() if v.ndim == 0},
             model.decoder.out_conv.weight.grad.cpu(),
+            {f"treeenergy_add {k}": v.item() for k, v in add.items()},
         )
-    (m_cpu, g_cpu), (m_gpu, g_gpu) = results["cpu"], results[str(dev)]
+    (m_cpu, g_cpu, a_cpu), (m_gpu, g_gpu, a_gpu) = results["cpu"], results[str(dev)]
+    m_cpu, m_gpu = {**m_cpu, **a_cpu}, {**m_gpu, **a_gpu}
     if not m_gpu["loss_tree"] > 0.0:
         raise AssertionError(f"loss_tree {m_gpu['loss_tree']!r} at tree_loss_weight 0.1")
     for k in m_cpu:
@@ -621,7 +632,8 @@ def phase_small_agreement(dev):
     torch.testing.assert_close(g_gpu, g_cpu, rtol=1e-3, atol=1e-5)
     log(f"[small] ours_loss card {m_gpu['total_loss']:.7g} cpu {m_cpu['total_loss']:.7g}, "
         f"loss_tree card {m_gpu['loss_tree']:.7g} cpu {m_cpu['loss_tree']:.7g}; "
-        f"out_conv grad max |diff| {(g_gpu - g_cpu).abs().max().item():.3g}")
+        f"out_conv grad max |diff| {(g_gpu - g_cpu).abs().max().item():.3g}; treeenergy_add "
+        f"card {m_gpu['treeenergy_add total_loss']:.7g} cpu {m_cpu['treeenergy_add total_loss']:.7g}")
 
 
 def main_path_setup(dev, tree_loss_weight: float = 0.1, iters: int = 4, rep_iters: int = 2,
@@ -694,10 +706,12 @@ def dtype_probe(model):
     return record, remove
 
 
-def phase_round(dev, tag: str, **setup):
+def phase_round(dev, tag: str, treeenergy_add: bool = False, **setup):
     """One FedICRA round at full width; returns its launch counts, losses,
     step times and peak memory. Under ``amp=True`` it also records the
-    dtypes of the first step's forwards and holds them to JAX's AMP."""
+    dtypes of the first step's forwards and holds them to JAX's AMP. With
+    ``treeenergy_add`` it then takes one step of that objective
+    (``treeenergy_add_step``)."""
     from fedicra_torch.models.params_filters import is_dsn_head, is_head, is_pcs
     from fedicra_torch.ops import gated_crf_cuda, tree_filter
 
@@ -785,7 +799,44 @@ def phase_round(dev, tag: str, **setup):
             raise AssertionError(f"head phase: {n} moved={moved}")
     if new.current_iter != iters:
         raise AssertionError(f"current_iter {new.current_iter}")
+    if treeenergy_add:
+        treeenergy_add_step(dev, model, state, batches, cid, cfg)
     return dict(launches=launches, losses=losses.tolist(), steps=[float(x) for x in steps], peak=peak)
+
+
+def treeenergy_add_step(dev, model, state, batches, cid: int, cfg) -> None:
+    """One step of the ``treeenergy_add`` objective (pCE + the additive
+    multi-scale tree term, no gated CRF, no contrast term) at the main
+    path's shape, from the round's starting weights and first batch: finite
+    losses and gradients, the tree term above 0, and one low and three high
+    tree filters forward and backward. (``phase_small_agreement`` holds the
+    objective on the card to the CPU.)"""
+    from fedicra_torch.engine.objective import treeenergy_add_loss
+
+    model.load_state_dict({**state.params, **state.batch_stats})
+    model.train()
+    model.zero_grad(set_to_none=True)
+    batch = {"image": batches["image"][0].float(), "label": batches["label"][0].long()}
+    _reset_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, metrics = treeenergy_add_loss(model, batch, cid, cfg.replace(procedure="treeenergy_add"),
+                                        torch.Generator(device=dev).manual_seed(0))
+    loss.backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _kernel_counts()
+    values = {k: v.item() for k, v in metrics.items()}
+    log(f"[main] treeenergy_add step: {1e3 * seconds:.3f} ms (forward and backward); "
+        f"{ {k: round(v, 7) for k, v in values.items()} }; kernel launches {counts}")
+    if not all(math.isfinite(v) for v in values.values()) or not values["loss_tree"] > 0:
+        raise AssertionError(f"treeenergy_add losses {values}")
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if not grads or not all(torch.isfinite(g).all() for g in grads):
+        raise AssertionError("treeenergy_add: missing or non-finite gradients")
+    want = {"gated_crf": 0, "gaussian_filter": 0, "tree_filter_fwd": 4, "tree_filter_bwd": 4}
+    if counts != want:
+        raise AssertionError(f"treeenergy_add launches {counts}, expected {want}")
 
 
 def phase_main_amp(dev, fp32: dict) -> dict:
@@ -819,15 +870,17 @@ def federation_config(img: int = IMG, batch: int = BATCH):
     )
 
 
-def phase_federation(dev, snap: str, img: int = IMG, batch: int = BATCH, limit: int = 12) -> None:
-    """Two federated rounds through build_experiment and FederatedServer.run.
+def phase_federation(dev, snap: str, img: int = IMG, batch: int = BATCH, limit: int = 12) -> list:
+    """Two federated rounds through build_experiment and FederatedServer.run;
+    returns each round's total_loss per client.
 
     Round 1 (iteration 2): every client adopts the global weights (they equal
     its own), trains 2 steps; the server averages. Round 2 (iteration 4):
     each client's ALA merge runs its first-run loop (>= 11 epochs), it trains,
     and the evaluation merges once more (1 epoch) and validates. Then a fresh
     experiment on the same snapshot directory resumes from it. The
-    snapshot directory ``snap`` is the caller's."""
+    snapshot directory ``snap`` is the caller's. Then one FedAdam round
+    (``federation_fedadam``)."""
     from fedicra_torch.federation import build_experiment
     from fedicra_torch.models.params_filters import is_ala_gated
     from fedicra_torch.ops import gated_crf_cuda, tree_filter
@@ -983,7 +1036,311 @@ def phase_federation(dev, snap: str, img: int = IMG, batch: int = BATCH, limit: 
         raise AssertionError(f"expected {n_steps} gated-CRF launches, got {launches}")
     if calls != {"tree_filter_fwd": 4 * n_steps, "tree_filter_bwd": 4 * n_steps}:
         raise AssertionError(f"expected {4 * n_steps} tree filter forwards and backwards, got {calls}")
+    losses = [[rec[f"client_{c}_total_loss"] for c in range(cfg.num_clients)] for rec in history]
     del server, again
+    torch.cuda.empty_cache()
+    federation_fedadam(dev, cfg, limit)
+    return losses
+
+
+def federation_fedadam(dev, fed_cfg, limit: int) -> None:
+    """One FedAdam round at reduced depth: 2 clients x 1 step of "ours" at
+    the federation phase's width (FedAdam is not personalised: no ALA, no
+    contrast term). Its global payload, both parts, against FedAdam's update
+    recomputed in float64 from the clients' fit payloads (flwr's defaults,
+    moments from zero): x + eta * m / (sqrt(v) + tau), at rtol 1e-5 wherever
+    the weighted mean moved by more than 1e-4, and within eta everywhere."""
+    from fedicra_torch.federation import build_experiment
+
+    cfg = fed_cfg.replace(strategy="FedAdam", num_clients=2, iters=1, rep_iters=1, eval_iters=2)
+    server = build_experiment(cfg, synthetic=True, limit_per_client=limit, device=dev)
+    start = {part: {k: v.clone() for k, v in tree.items()}
+             for part, tree in server.global_payload.items()}
+    fits = []
+    for c in server.clients:
+        def fit(ins, _fit=c.fit):
+            res = _fit(ins)
+            fits.append(res)
+            return res
+
+        c.fit = fit
+    _reset_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = server.run(num_rounds=cfg.iters, progress=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _kernel_counts()
+    losses = [history[-1][f"client_{c}_total_loss"] for c in range(2)]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"FedAdam round: non-finite losses {losses}")
+    s = server.strategy
+    weights = torch.tensor([float(f.num_examples) for f in fits], dtype=torch.float64)
+    weights /= weights.sum()
+    worst, held, total = 0.0, 0, 0
+    for part, tree in server.global_payload.items():
+        for name, got in tree.items():
+            x, got = start[part][name].double(), got.double()
+            delta = sum(w * f.payload[part][name].double() for w, f in zip(weights, fits)) - x
+            m, v = (1 - s.beta_1) * delta, (1 - s.beta_2) * delta * delta
+            want = x + s.eta * m / (torch.sqrt(v) + s.tau)
+            # the step is eta * d / (|d| + 1e-8): ill-conditioned where the
+            # mean moved by little more than float32 resolves on x
+            sure = delta.abs() > 1e-4
+            torch.testing.assert_close(got[sure], want[sure], rtol=1e-5, atol=1e-6)
+            if not ((got - x).abs() <= s.eta * (1 + 1e-5)).all():
+                raise AssertionError(f"FedAdam moved {part}/{name} by more than eta")
+            if sure.any():
+                worst = max(worst, (got[sure] - want[sure]).abs().max().item())
+            held += int(sure.sum())
+            total += sure.numel()
+    log(f"[federation] FedAdam round (2 clients x 1 step): {seconds:.3f} s; total_loss "
+        f"{[round(v, 6) for v in losses]}; global payload against float64 FedAdam, max |diff| "
+        f"{worst:.3g} on the {held} of {total} elements whose mean moved by > 1e-4, the rest "
+        f"within eta; kernel launches {counts}")
+    if counts["gated_crf"] != 2:
+        raise AssertionError(f"expected 2 gated-CRF launches in the FedAdam round, got {counts}")
+    del server
+
+
+def _sharded_rank(rank: int, device: str, cfg, limit: int, out: str) -> None:
+    """A rank of ``phase_sharded``'s (ii) and (iii): the sharded federation's
+    first round on this rank's mesh, its first step's loss and BatchNorm
+    statistics per client, the round's global payload, its wall time, peak
+    memory and kernel launches, saved to ``out.<rank>``."""
+    import torch.distributed as dist
+
+    from fedicra_torch.federation.sharded_experiment import ShardedFederation
+
+    full_fp32()  # as this script's main process
+    fed = ShardedFederation(cfg, synthetic=True, limit_per_client=limit, device=device)
+    first, stamps = {}, []
+
+    def on_step(cid, j, metrics):
+        if j == 0:
+            first[cid] = (metrics["total_loss"].item(),  # waits for the step
+                          {n: b.detach().cpu().clone() for n, b in fed.model.named_buffers()})
+        stamps.append(time.perf_counter())
+
+    card = fed.device.type == "cuda"  # a CPU rank in a rehearsal of this phase
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    record = fed.run_round(on_step=on_step)
+    if card:
+        torch.cuda.synchronize()
+    torch.save(dict(mesh=fed.mesh.shape, coords=fed.mesh.coords, backend=dist.get_backend(),
+                    device=str(fed.device), seconds=time.perf_counter() - t0,
+                    steps=[b - a for a, b in zip([t0, *stamps], stamps)],
+                    peak=torch.cuda.max_memory_allocated() / 2**30 if card else 0.0,
+                    launches=_kernel_counts(), first=first, record=record,
+                    payload=cpu_payload(fed.global_payload)), f"{out}.{rank}")
+
+
+def cpu_payload(payload: dict) -> dict:
+    return {part: {k: v.detach().cpu().clone() for k, v in tree.items()}
+            for part, tree in payload.items()}
+
+
+def one_round_payload(dev, cfg, limit: int) -> dict:
+    """The global payload after the sharded federation's first round on mesh
+    (1, 1), in this process."""
+    from fedicra_torch.federation.sharded_experiment import ShardedFederation
+
+    fed = ShardedFederation(cfg, synthetic=True, limit_per_client=limit, device=dev)
+    fed.run_round()
+    payload = cpu_payload(fed.global_payload)
+    del fed
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return payload
+
+
+def hold_payloads(tag: str, ranks: list, want: dict, cfg) -> None:
+    """The round's global payload on every rank against (1, 1)'s ``want``,
+    after one local step a client: the ranks equal bit for bit; the
+    BatchNorm statistics at atol 5e-5 + rtol 5e-5; the weights within one
+    Adam step's envelope (2 lr: a gradient of rounding noise turns into a
+    step of +-lr) with each tensor's median element at 1e-6, but for the conv
+    biases before a BatchNorm and the DSN heads, whose gradients are such
+    noise, held to the envelope only (as tests/test_torch_sharded_data.py)."""
+    from fedicra_torch.engine.trainer import poly_lr
+
+    got = ranks[0]["payload"]
+    for r, res in enumerate(ranks):
+        for part, tree in res["payload"].items():
+            if any(not torch.equal(v, got[part][k]) for k, v in tree.items()):
+                raise AssertionError(f"{tag}: rank {r}'s global {part} differs from rank 0's")
+    worst_stat = 0.0
+    for k, w in want["batch_stats"].items():
+        torch.testing.assert_close(got["batch_stats"][k], w, rtol=5e-5, atol=5e-5,
+                                   msg=lambda m, _k=k: f"{tag} global {_k}: {m}")
+        worst_stat = max(worst_stat, (got["batch_stats"][k] - w).abs().max().item())
+    envelope = 2 * poly_lr(cfg.base_lr, 0, cfg.max_iterations)
+    worst = worst_median = 0.0
+    for k, w in want["params"].items():
+        d = (got["params"][k] - w).abs().flatten()
+        worst = max(worst, d.max().item())
+        if d.max().item() > envelope:
+            raise AssertionError(f"{tag} global {k}: max |diff| {d.max().item():.3g} > {envelope}")
+        if not (k.endswith(".conv.bias") or ".dsn_head" in k):
+            median = d.median().item()
+            worst_median = max(worst_median, median)
+            if median > 1e-6:
+                raise AssertionError(f"{tag} global {k}: median |diff| {median:.3g} > 1e-6")
+    log(f"[sharded] {tag} global payload against (1, 1)'s: ranks equal; BatchNorm statistics "
+        f"max |diff| {worst_stat:.3g}; weights max |diff| {worst:.3g} (envelope {envelope:.3g}), "
+        f"largest median {worst_median:.3g}")
+
+
+def _sharded_ranks(cfg, limit: int, backend: str, devices: list) -> list:
+    from fedicra_torch.parallel import spawn_ranks
+
+    with tempfile.TemporaryDirectory(prefix="fedicra_sharded_") as tmp:
+        out = os.path.join(tmp, "rank")
+        t0 = time.perf_counter()
+        spawn_ranks(_sharded_rank, (cfg, limit, out), backend, devices)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(f"{out}.{r}") for r in range(len(devices))]
+    log(f"[sharded] {len(devices)} ranks over {backend} on {devices}: mesh {ranks[0]['mesh']}, "
+        f"launch {wall:.3f} s (process start-up and first use of the card included)")
+    for r, res in enumerate(ranks):
+        log(f"[sharded] rank {r} at {res['coords']} ({res['backend']}, {res['device']}): first "
+            f"round {res['seconds']:.3f} s, its steps {[round(t, 3) for t in res['steps']]} s "
+            f"(the first with the process's first use of each kernel); max_memory_allocated {res['peak']:.3f} GiB; kernel "
+            f"launches {res['launches']}; first-step total_loss "
+            f"{ {c: round(v[0], 7) for c, v in sorted(res['first'].items())} }")
+    return ranks
+
+
+def hold_first_steps(tag: str, ranks: list, first: dict, mesh: tuple, cfg) -> None:
+    """Each rank of a (1, n) mesh holds every client: its first step per
+    client against (1, 1)'s ``first``, the loss at rtol 1e-4, the BatchNorm
+    statistics at atol 5e-5 + rtol 5e-5; every rank's record the same."""
+    worst_loss = worst_stat = 0.0
+    for res in ranks:
+        held = sorted(res["first"])
+        if res["mesh"] != mesh or held != list(range(cfg.num_clients)):
+            raise AssertionError(f"{tag}: mesh {res['mesh']}, clients {held}")
+        if res["launches"]["gated_crf"] != len(held) * cfg.iters:
+            raise AssertionError(f"{tag}: launches {res['launches']}")
+        for c, (loss, stats) in res["first"].items():
+            loss0, stats0 = first[c]
+            worst_loss = max(worst_loss, abs(loss - loss0) / abs(loss0))
+            if not math.isclose(loss, loss0, rel_tol=1e-4):
+                raise AssertionError(f"{tag} client {c}: first-step loss {loss!r} vs {loss0!r}")
+            for n, b in stats.items():
+                torch.testing.assert_close(b, stats0[n], rtol=5e-5, atol=5e-5,
+                                           msg=lambda m, _n=n, _c=c: f"{tag} client {_c} {_n}: {m}")
+                worst_stat = max(worst_stat, (b - stats0[n]).abs().max().item())
+    if any(res["record"] != ranks[0]["record"] for res in ranks):
+        raise AssertionError(f"{tag}: the ranks' records differ")
+    log(f"[sharded] {tag} against (i): first-step loss relative gap {worst_loss:.3g}, BatchNorm "
+        f"statistics max |diff| {worst_stat:.3g}")
+
+
+def phase_sharded(dev, in_process_losses: list, img: int = IMG, batch: int = BATCH,
+                  limit: int = 12) -> dict:
+    """The SPMD federation (``--sharded``'s library route) on the card.
+
+    (i) Mesh (1, 1), in this process: ``ShardedFederation.run`` for the
+    federation phase's 2 rounds (5 full-width ODOC clients, FedICRA "ours"
+    at tree weight 0.1, 2 steps a round, ALA's first-run loop in round 2,
+    evaluation at iteration 4), from the same weights and batches; each
+    round's losses within rtol 1e-3 of ``phase_federation``'s (the card's
+    backward adds in no fixed order). Prints the round wall times, the ALA
+    epochs per client, the peak memory and the launches.
+    (ii) Mesh (1, 2): two gloo ranks on this card (NCCL refuses two ranks on
+    one device), batch 6 each, a first round of one step a client; each
+    client's first-step loss (rtol 1e-4) and BatchNorm statistics (atol 5e-5
+    + rtol 5e-5) against (i)'s, the two ranks equal; the round's global
+    payload, after the data group's gradient all-reduce, the AdamW step and
+    the FedAvg all-reduce, against the same one-step round on (1, 1) in this
+    process (``hold_payloads``).
+    (iii) With n >= 2 cards, over NCCL: the mesh of every card (5 clients:
+    (1, n)) held to (i) and (1, 1) as (ii) is, and mesh (2, 1) with 4
+    clients, finite losses and the payload held to its (1, 1) round; else it
+    says it did not run."""
+    from fedicra_torch.federation.sharded_experiment import ShardedFederation
+
+    cfg = federation_config(img, batch)
+    fed = ShardedFederation(cfg, synthetic=True, limit_per_client=limit, device=dev)
+    first = {}
+    inner = fed.round_fn
+
+    def round_fn(*args, **kwargs):  # records round 1's first step
+        def on_step(cid, j, metrics):
+            if j == 0 and fed.current_round == 0:
+                first[cid] = (metrics["total_loss"].item(),
+                              {n: b.detach().cpu().clone() for n, b in fed.model.named_buffers()})
+        return inner(*args, **{**kwargs, "on_step": on_step})
+
+    fed.round_fn = round_fn
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    history = fed.run(num_rounds=2 * cfg.iters, progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_steps = cfg.num_clients * 2 * cfg.iters
+    log(f"[sharded] (i) mesh {fed.mesh.shape}: {len(history)} rounds in {wall:.3f} s, round wall "
+        f"{[round(r['round_duration'], 3) for r in history]} s (round 2 with ALA's first run "
+        f"and the evaluation); ALA epochs per client {[fed.ala_counters[c] for c in range(5)]}; "
+        f"max_memory_allocated {peak:.3f} GiB; kernel launches {counts}")
+    gaps = []
+    for rnd, (rec, want) in enumerate(zip(history, in_process_losses), 1):
+        got = [rec[f"client_{c}_total_loss"] for c in range(5)]
+        gaps += [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        log(f"[sharded] (i) round {rnd} total_loss {[round(v, 7) for v in got]}; in-process "
+            f"{[round(v, 7) for v in want]}")
+    log(f"[sharded] (i) largest relative gap to the in-process route {max(gaps):.3g}; "
+        f"val_mean_dice {history[-1]['val_mean_dice']:.6f}")
+    if len(history) != 2 or max(gaps) > 1e-3:
+        raise AssertionError(f"sharded losses {max(gaps):.3g} from the in-process route's")
+    if not all(11 <= fed.ala_counters[c] <= 50 for c in range(5)):
+        raise AssertionError(f"ALA's first run drew {fed.ala_counters} epochs")
+    want = {"gated_crf": n_steps, "gaussian_filter": 0, "tree_filter_fwd": 4 * n_steps,
+            "tree_filter_bwd": 4 * n_steps}
+    if counts != want:
+        raise AssertionError(f"sharded launches {counts}, expected {want}")
+    if not math.isfinite(history[-1]["val_mean_dice"]):
+        raise AssertionError("sharded val_mean_dice not finite")
+    del fed, inner
+    torch.cuda.empty_cache()
+
+    cards = ["cuda:0"] * 2 if dev.type == "cuda" else ["cpu"] * 2
+    # one step a client: its forward, the one compared, is the first step's
+    # whatever phase it opens
+    one_step = cfg.replace(iters=1, rep_iters=1)
+    t0 = time.perf_counter()
+    want = one_round_payload(dev, one_step, limit)
+    log(f"[sharded] (1, 1) one-step round in this process, for the payload: "
+        f"{time.perf_counter() - t0:.3f} s")
+    ranks = _sharded_ranks(one_step, limit, "gloo", cards)
+    hold_first_steps("(ii)", ranks, first, (1, 2), one_step)
+    hold_payloads("(ii)", ranks, want, one_step)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        # every card over NCCL: 5 clients give (1, n) for n = 2, 3, 4
+        cards = [f"cuda:{i}" for i in range(n_cards)]
+        ranks = _sharded_ranks(one_step, limit, "nccl", cards)
+        hold_first_steps("(iii)", ranks, first, ranks[0]["mesh"], one_step)
+        hold_payloads("(iii)", ranks, want, one_step)
+        four = one_step.replace(num_clients=4)
+        ranks = _sharded_ranks(four, limit, "nccl", cards[:2])
+        losses = [v for res in ranks for v, _ in res["first"].values()]
+        if ranks[0]["mesh"] != (2, 1) or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"(iii): mesh {ranks[0]['mesh']}, losses {losses}")
+        hold_payloads("(iii) (2, 1)", ranks, one_round_payload(dev, four, limit), four)
+    else:
+        log(f"[sharded] (iii) NCCL meshes over cards not run: {n_cards} card")
+    return dict(rounds=[r["round_duration"] for r in history], wall=wall, peak=peak,
+                launches=counts["gated_crf"])
 
 
 def _kernel_counts() -> dict:
@@ -1268,14 +1625,6 @@ def phase_models(dev, img: int = IMG, batch: int = BATCH) -> None:
     log("[models] " + "; ".join(f"{k} {v['total_s']:.3f} s" for k, v in timer.summary().items()))
 
 
-def free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def empty_cache_cost(dev, reps: int = 3):
     """What ``serve_client``'s ``torch.cuda.empty_cache()`` after each reply
     costs a client: a 2-step local round of the distributed phase's
@@ -1320,6 +1669,8 @@ def phase_distributed(dev, route1: dict, img: int = IMG, batch: int = BATCH,
         f"right after empty_cache {[round(x, 4) for x in emptied]} s; empty_cache itself "
         f"{[round(1e3 * x, 3) for x in frees]} ms (in turns)")
     torch.cuda.empty_cache()  # the card's memory, for the six processes
+    from fedicra_torch.parallel.launch import free_port
+
     with tempfile.TemporaryDirectory(prefix="fedicra_dist_") as tmp:
         run_dir = os.path.join(tmp, "run")
         os.makedirs(run_dir)
@@ -1531,6 +1882,13 @@ def phase_gated_crf_surface(dev) -> None:
             raise AssertionError(f"{name}: peak memory {peak:.3f} GiB, not under 8")
 
 
+def full_fp32() -> None:
+    """No TF32 in cuDNN's convolutions or in matmuls: every phase, and every
+    rank a phase spawns, computes in full fp32."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def card_name_and_power() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -1547,8 +1905,7 @@ def main() -> int:
     from fedicra_torch import resolve_device
 
     dev = resolve_device()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_fp32()
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     log(f"[env] cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
@@ -1561,7 +1918,7 @@ def main() -> int:
     phase_small_agreement(dev)
     phase_round(dev, "tree-off", tree_loss_weight=0.0, iters=2, rep_iters=1)
     torch.cuda.empty_cache()
-    main_run = phase_round(dev, "main")
+    main_run = phase_round(dev, "main", treeenergy_add=True)
     gated_row["launches"] = main_run["launches"]["gated_crf"]
     rows = [gated_row, gaussian_row]
     torch.cuda.empty_cache()
@@ -1569,7 +1926,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="fedicra_smoke_") as tmp:
         fed_snapshot = os.path.join(tmp, "federation")
-        phase_federation(dev, fed_snapshot)
+        fed_losses = phase_federation(dev, fed_snapshot)
+        torch.cuda.empty_cache()
+        phase_sharded(dev, fed_losses)
         torch.cuda.empty_cache()
         route1 = phase_cli(dev, fed_snapshot)
     torch.cuda.empty_cache()

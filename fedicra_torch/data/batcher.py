@@ -33,6 +33,40 @@ def _epoch_generator(seed: int, epoch: int, stream: int) -> torch.Generator:
     return torch.Generator().manual_seed(((seed * 1_000_003 + epoch) * 2 + stream) % 2**63)
 
 
+def materialize_epoch(
+    images: torch.Tensor,
+    labels: torch.Tensor,
+    seed: int,
+    epoch: int,
+    batch_size: int,
+    num_classes: int,
+    img_class: str,
+    augment: bool = True,
+):
+    """One epoch of a split's device arrays: the permutation of (seed, epoch),
+    wrap-padded to whole batches, gathered and augmented. Returns
+    ([nb, B, H, W, C], [nb, B, H, W])."""
+    n = images.shape[0]
+    nb = math.ceil(n / batch_size)
+    perm = torch.randperm(n, generator=_epoch_generator(seed, epoch, 0))
+    pad = nb * batch_size - n
+    if pad:
+        perm = torch.cat([perm, perm[:pad]])
+    perm = perm.to(images.device)
+    images = images[perm]
+    labels = labels[perm].long()
+    if augment:
+        images, labels = augment_batch(
+            _epoch_generator(seed, epoch, 1),
+            images,
+            labels,
+            num_classes=num_classes,
+            image_cval=image_cval_for(img_class),
+        )
+    return (images.reshape(nb, batch_size, *images.shape[1:]),
+            labels.reshape(nb, batch_size, *labels.shape[1:]))
+
+
 class EpochBatcher:
     def __init__(
         self,
@@ -75,24 +109,10 @@ class EpochBatcher:
         self._epoch_labels = None
 
     def _materialize_epoch(self, epoch: int):
-        perm = torch.randperm(self.n, generator=_epoch_generator(self.seed, epoch, 0))
-        pad = self.num_batches * self.batch_size - self.n
-        if pad:
-            perm = torch.cat([perm, perm[:pad]])
-        perm = perm.to(self.device)
-        images = self._images_dev[perm]
-        labels = self._labels_dev[perm].long()
-        if self.augment:
-            images, labels = augment_batch(
-                _epoch_generator(self.seed, epoch, 1),
-                images,
-                labels,
-                num_classes=self.num_classes,
-                image_cval=image_cval_for(self.img_class),
-            )
-        nb, bs = self.num_batches, self.batch_size
-        self._epoch_images = images.reshape(nb, bs, *images.shape[1:])
-        self._epoch_labels = labels.reshape(nb, bs, *labels.shape[1:])
+        self._epoch_images, self._epoch_labels = materialize_epoch(
+            self._images_dev, self._labels_dev, self.seed, epoch, self.batch_size,
+            self.num_classes, self.img_class, augment=self.augment,
+        )
         self._epoch_cache = epoch
 
     def batch_at(self, global_iter: int) -> Dict[str, torch.Tensor]:

@@ -30,6 +30,7 @@ from ..losses.partial import partial_cross_entropy
 from ..losses.tree_energy import multi_scale_tree_energy_loss
 from ..models.factory import LC_MODELS
 from ..ops.activations import softmax
+from ..parallel.data_axis import batch_mean
 from .config import TrainConfig
 
 
@@ -58,7 +59,7 @@ def _contrast_loss(
         emb = torch.full((batch,), cid if k == 0 else k, dtype=torch.long, device=images.device)
         with torch.no_grad():
             hm_k = model(images, emb_idx=emb, generator=generator)["heatmaps"][-1]
-        mses.append(torch.mean((hm_own - hm_k) ** 2))
+        mses.append(batch_mean((hm_own - hm_k) ** 2))
     # one sum in the heatmaps' dtype, as JAX's (bf16 under AMP)
     return -torch.stack(mses).sum() / (K - 1)
 

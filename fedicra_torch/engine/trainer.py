@@ -11,6 +11,10 @@ Counterpart of ``fedicra_tpu/engine/trainer.py``:
   decay) and get ``requires_grad=False``; gradients still flow through
   them. That covers PCS always, and the DSN heads under the pCE objective or
   under "ours" with ``tree_loss_weight == 0`` (no loss reaches them).
+- Under a data shard (``parallel/data_axis.py``) ``batches`` hold this
+  rank's rows of the client batch; the gradients and the scalar metrics
+  are summed over the data group before each step, so every rank takes
+  the step of the whole batch.
 - ``cfg.amp``: the objective (its forwards and the backward through them)
   runs under ``compute_dtype(torch.bfloat16)``, as JAX's ``loss_fn`` sets
   the compute dtype; parameters, gradients and AdamW's state stay fp32, and
@@ -30,6 +34,7 @@ import torch
 from ..device import resolve_device
 from ..models.blocks import compute_dtype, init_torch_default
 from ..models.params_filters import is_dsn_head, is_head, is_pcs
+from ..parallel.data_axis import current_shard
 from .config import TrainConfig
 from .objective import get_objective
 
@@ -103,6 +108,7 @@ def make_round_fn(model, cfg: TrainConfig, device=None):
     def round_fn(state: ClientState, batches, cid: int, on_step: Optional[Callable] = None):
         model.load_state_dict({**state.params, **state.batch_stats})
         model.train()
+        shard = current_shard()
         images = torch.as_tensor(batches["image"], device=device).float()
         labels = torch.as_tensor(batches["label"], device=device).long()
         start = state.current_iter
@@ -131,8 +137,14 @@ def make_round_fn(model, cfg: TrainConfig, device=None):
                 with compute_dtype(amp_dtype):
                     loss, metrics = objective(model, batch, cid, cfg, state.generator)
                 loss.backward()
-                opt.step()
                 metrics = {k: v.detach() for k, v in metrics.items()}
+                if shard is not None:
+                    grads = [p.grad for n, p in model.named_parameters()
+                             if n in live and p.grad is not None]
+                    for g, total in zip(grads, shard.sum_flat(grads)):
+                        g.copy_(total)
+                    metrics = shard.sum_scalars(metrics)
+                opt.step()
                 metrics["lr"] = torch.tensor(lr)
                 history.append(metrics)
                 if on_step is not None:

@@ -11,6 +11,7 @@ from .strategies import (
     FedICRA,
     FedYogi,
     get_strategy,
+    stacked_weighted_mean,
     weighted_tree_mean,
 )
 
@@ -31,5 +32,6 @@ __all__ = [
     "FedICRA",
     "FedYogi",
     "get_strategy",
+    "stacked_weighted_mean",
     "weighted_tree_mean",
 ]

@@ -36,7 +36,7 @@ CE loss alone the card does not need it.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +45,7 @@ from torch.func import functional_call
 from ..engine.config import TrainConfig
 from ..losses.partial import partial_cross_entropy
 from ..models.params_filters import is_ala_gated
+from ..parallel.data_axis import current_shard
 
 ALA_SKIP_ITERS = 50  # flower_common.py:524; TrainConfig.ala_skip_iters defaults to it
 ALA_ETA = 1.0
@@ -83,9 +84,13 @@ def ala_epoch(
     cid: int,
 ) -> Tuple[Tree, float]:
     """One gate-learning epoch over ``batches`` = {'image': [nb, B, H, W, C],
-    'label': [nb, B, H, W]}. Returns (gates, the last batch's loss)."""
+    'label': [nb, B, H, W]}. Returns (gates, the last batch's loss).
+
+    Under a data shard ``batches`` hold this rank's rows; the gates'
+    gradients and the loss are summed over the data group."""
     was_training = model.training
     model.train()
+    shard = current_shard()
     loss = None
     try:
         for images, labels in zip(batches["image"], batches["label"]):
@@ -97,7 +102,10 @@ def ala_epoch(
                 {"emb_idx": emb, "generator": generator},
             )
             loss = partial_cross_entropy(out["logits"], labels, cfg.num_classes)
-            grads = dict(zip(merged_g, torch.autograd.grad(loss, list(merged_g.values()))))
+            grads = torch.autograd.grad(loss, list(merged_g.values()))
+            if shard is not None:  # this rank's share of the batch's gradient and loss
+                *grads, loss = shard.sum_flat([*grads, loss])
+            grads = dict(zip(merged_g, grads))
             with torch.no_grad():
                 gates = {
                     k: torch.clamp(w - ALA_ETA * grads[k] * (local_g[k] - global_g[k]), 0.0, 1.0)
@@ -106,6 +114,47 @@ def ala_epoch(
     finally:
         model.train(was_training)
     return gates, float(loss.detach())
+
+
+def learn_gates(
+    model,
+    cfg: TrainConfig,
+    local_params: Tree,
+    global_params: Tree,
+    global_stats: Tree,
+    batch_provider: Callable[[int], Dict[str, torch.Tensor]],
+    generator: Optional[torch.Generator],
+    cid: int,
+    first_run: bool,
+) -> Tuple[Tree, List[float], Tree]:
+    """The gates learnt from all ones (quirk #3): one epoch, or under
+    ``first_run`` epochs until the std of the last 10 losses is below 0.1
+    (at most ``ALA_MAX_EPOCHS``). ``batch_provider(n)`` gives the n-th
+    epoch's batches. Returns (the merged params in the payload's order, the
+    epochs' losses, the gates)."""
+    local_g, _ = _split_gated(local_params)
+    global_g, global_rest = _split_gated(global_params)
+    gates = init_gates(local_params)
+
+    losses: List[float] = []
+    while True:
+        gates, last_loss = ala_epoch(
+            model, cfg, gates, local_g, global_g, global_rest, global_stats,
+            batch_provider(len(losses)), generator, cid,
+        )
+        losses.append(last_loss)
+        if not first_run:
+            break
+        if (
+            len(losses) > ALA_NUM_PRE_LOSS
+            and float(np.std(losses[-ALA_NUM_PRE_LOSS:])) < ALA_STD_THRESHOLD
+        ):
+            break
+        if len(losses) >= ALA_MAX_EPOCHS:
+            break
+
+    params = {**global_rest, **_blend(gates, local_g, global_g)}
+    return {k: params[k] for k in global_params}, losses, gates
 
 
 def ala_set_weights(
@@ -135,29 +184,10 @@ def ala_set_weights(
         return global_params, global_stats, start_phase
 
     t0 = time.perf_counter()
-    local_g, _ = _split_gated(local_params)
-    global_g, global_rest = _split_gated(global_params)
-    gates = init_gates(local_params)  # quirk #3
-
-    losses = []
-    while True:
-        gates, last_loss = ala_epoch(
-            model, cfg, gates, local_g, global_g, global_rest, global_stats,
-            batch_provider(len(losses)), generator, cid,
-        )
-        losses.append(last_loss)
-        if not start_phase:
-            break
-        if (
-            len(losses) > ALA_NUM_PRE_LOSS
-            and float(np.std(losses[-ALA_NUM_PRE_LOSS:])) < ALA_STD_THRESHOLD
-        ):
-            break
-        if len(losses) >= ALA_MAX_EPOCHS:
-            break
-
-    params = {**global_rest, **_blend(gates, local_g, global_g)}
-    params = {k: params[k] for k in global_params}  # the payload's order
+    params, losses, gates = learn_gates(
+        model, cfg, local_params, global_params, global_stats, batch_provider, generator,
+        cid, start_phase,
+    )
     if report is not None:
         n = sum(g.numel() for g in gates.values())
         report.update(

@@ -41,6 +41,17 @@ def weighted_tree_mean(trees: Sequence[Tree], weights: Sequence[float]) -> Tree:
     return out
 
 
+def stacked_weighted_mean(stacked_tree: Tree, weights: torch.Tensor) -> Tree:
+    """Weighted mean over a leading client axis (JAX's, for its sharded
+    simulation): weights normalised by their sum, one contraction, cast back
+    to the leaf's dtype."""
+    w = weights / torch.sum(weights)
+    return {
+        name: torch.tensordot(w.to(leaf.device), leaf.float(), dims=1).to(leaf.dtype)
+        for name, leaf in stacked_tree.items()
+    }
+
+
 class Strategy:
     """Server strategy: aggregates client results into new global weights."""
 

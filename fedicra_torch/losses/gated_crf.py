@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.gated_crf_cuda import gated_crf_potts, gated_crf_potts_plain, offset_windows
+from ..parallel.data_axis import current_shard
 
 LIVE_KERNEL = {"weight": 1.0, "xy": 6.0, "rgb": 0.1}  # the "Ours" objective's only kernel
 
@@ -137,5 +138,11 @@ def gated_crf_loss_auto(softmax_probs: torch.Tensor, image: torch.Tensor, *, rad
 
     Potts with no masks, the one surface the kernel takes (as JAX's Pallas
     kernel). The guide features are a gradient leaf, as in the live objective.
+    Under a data shard the kernel's mean over this rank's B_local images is
+    scaled by B_local / B, to this rank's share of the whole batch's mean.
     """
-    return gated_crf_potts(*_planes(softmax_probs, image), radius)
+    loss = gated_crf_potts(*_planes(softmax_probs, image), radius)
+    shard = current_shard()
+    if shard is None:
+        return loss
+    return loss * (softmax_probs.shape[0] / shard.batch)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.activations import log_softmax
+from ..parallel.data_axis import batch_count
 
 
 def partial_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -18,12 +19,13 @@ def partial_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, num_classe
     Written as JAX's is, so it rounds where JAX does in the logits' dtype
     (bf16 under AMP): each step of the log-softmax, the per-pixel loss, its
     sum (taken in fp32 and rounded once) and the division by the count.
+    Under a data shard the count is the whole client batch's.
     """
     valid = labels != num_classes
     safe = torch.where(valid, labels, 0).long()
     nll = -log_softmax(logits, dim=-1).gather(-1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / valid.sum().clamp(min=1)
+    return nll.sum() / batch_count(valid.sum()).clamp(min=1)
 
 
 def partial_dice_loss(probs: torch.Tensor, labels: torch.Tensor, num_classes: int) -> torch.Tensor:

@@ -33,6 +33,7 @@ from ..ops.activations import softmax
 from ..ops.mst import boruvka_mst, grid_edges
 from ..ops.tree import TreeStructure, build_tree
 from ..ops.tree_filter import tree_filter
+from ..parallel.data_axis import batch_count
 
 
 def resize_linear(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
@@ -107,7 +108,8 @@ def _prep(preds, low_feats, unlabeled_rois):
 
 
 def _roi_normalised(loss: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
-    n = rois.sum()
+    """``loss`` over the ROI's size (the whole client batch's under a data shard)."""
+    n = batch_count(rois.sum())
     return torch.where(n > 0, loss / n.clamp(min=1.0), loss)
 
 

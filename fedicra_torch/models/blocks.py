@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.data_axis import batch_draw, current_shard
+
 LRELU_SLOPE = 0.01  # torch nn.LeakyReLU default negative_slope
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -84,9 +86,12 @@ def dropout(
     if p == 0.0:
         return x
     shape = x.shape[:2] + (1, 1) if channels else x.shape
-    keep = torch.empty(shape, device=x.device, dtype=x.dtype)
-    keep.bernoulli_(1.0 - p, generator=generator)
-    return x * keep / (1.0 - p)
+
+    def draw(shape):
+        keep = torch.empty(shape, device=x.device, dtype=x.dtype)
+        return keep.bernoulli_(1.0 - p, generator=generator)
+
+    return x * batch_draw(draw, shape) / (1.0 - p)
 
 
 class BatchNorm(nn.Module):
@@ -98,6 +103,10 @@ class BatchNorm(nn.Module):
     would fold in the unbiased one. The batch statistics are taken from
     ``F.batch_norm`` itself (momentum 1 into scratch buffers) and the
     running buffers are updated here by hand.
+
+    Under a data shard (``parallel/data_axis.py``) the batch statistics are
+    the whole client batch's: the mean, then the centred sum of squares,
+    each summed over the data group with a gradient through the sum.
     """
 
     def __init__(self, num_features: int, eps: float = BN_EPS, momentum: float = BN_MOMENTUM):
@@ -116,6 +125,9 @@ class BatchNorm(nn.Module):
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 training=False, eps=self.eps,
             )
+        shard = current_shard()
+        if shard is not None:
+            return self._forward_sharded(x, shard)
         mean = torch.zeros_like(self.running_mean)
         var_unbiased = torch.zeros_like(self.running_var)
         out = F.batch_norm(
@@ -128,6 +140,18 @@ class BatchNorm(nn.Module):
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var_unbiased, alpha=m * (n - 1) / n)
         return out
+
+    def _forward_sharded(self, x: torch.Tensor, shard) -> torch.Tensor:
+        n = shard.batch * x[0, 0].numel()
+        mean = shard.sum(x.sum(dim=(0, 2, 3))) / n
+        centred = x - mean[:, None, None]
+        var = shard.sum((centred * centred).sum(dim=(0, 2, 3))) / n
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        return centred * scale[:, None, None] + self.bias[:, None, None]
 
 
 def conv(in_ch: int, out_ch: int, kernel_size: int = 3, bias: bool = True) -> Conv:

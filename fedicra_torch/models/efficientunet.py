@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.data_axis import batch_draw
 from .blocks import BatchNorm, conv
 
 # B0 stage table: (num_repeat, kernel, stride, expand, out_channels)
@@ -84,7 +85,8 @@ def conv_same(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 def draw_drop_connect(x: torch.Tensor, keep: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """Which samples keep the block's residual branch, (B, 1, 1, 1) bool."""
-    u = torch.rand((x.shape[0], 1, 1, 1), generator=generator, device=x.device)
+    u = batch_draw(lambda shape: torch.rand(shape, generator=generator, device=x.device),
+                   (x.shape[0], 1, 1, 1))
     return u < keep
 
 

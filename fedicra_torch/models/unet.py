@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.activations import sigmoid
+from ..parallel.data_axis import batch_draw
 from .blocks import ConvBlock, DSNHead, DownBlock, UpBlock, conv
 
 DEFAULT_FEATURES = (16, 32, 64, 128, 256)
@@ -264,7 +265,8 @@ def draw_channel_dropout(
     x: torch.Tensor, generator: Optional[torch.Generator], p: float = 0.5
 ) -> torch.Tensor:
     """Which channels of each image survive, (B, C, 1, 1) bool."""
-    u = torch.rand(x.shape[:2] + (1, 1), generator=generator, device=x.device)
+    u = batch_draw(lambda shape: torch.rand(shape, generator=generator, device=x.device),
+                   x.shape[:2] + (1, 1))
     return u < 1.0 - p
 
 

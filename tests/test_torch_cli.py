@@ -58,13 +58,14 @@ def test_task_tables_match_jax(task, n_clients):
 def _refuse_models(monkeypatch):
     """Make every way the CLI builds a model fail loudly."""
     import fedicra_torch.federation.experiment as experiment
+    import fedicra_torch.federation.sharded_experiment as sharded_experiment
     import fedicra_torch.models as models
     import fedicra_torch.models.factory as factory
 
     def boom(*a, **k):
         raise AssertionError("net_factory called before the data-root check")
 
-    for mod in (models, factory, experiment):
+    for mod in (models, factory, experiment, sharded_experiment):
         monkeypatch.setattr(mod, "net_factory", boom)
 
 
@@ -82,19 +83,57 @@ def test_missing_data_root_refuses_before_any_model(tmp_path, monkeypatch, centr
 
 
 def test_sharded_and_distributed_are_refused(tmp_path, monkeypatch):
-    """--sharded (TPU mesh only) is refused. --distributed runs 1 server and
-    N client processes (tests/test_torch_distributed.py); without a card,
-    and no device named, it is refused before any model or process."""
+    """--sharded runs FedAvg and FedICRA only (JAX's sharded round averages
+    under any strategy; tests/test_torch_sharded.py) and writes no resume
+    snapshot, so a FedOpt strategy and --resume are refused before any
+    model. --sharded and --distributed (tests/test_torch_distributed.py) are
+    refused without a card, when no device is named, before any model or
+    process."""
     import multiprocessing
 
     _refuse_models(monkeypatch)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        port_train.main(["--synthetic", "--sharded", "--device", "cpu",
-                         "--snapshot_root", str(tmp_path)])
+    argv = ["--synthetic", "--sharded", "--snapshot_root", str(tmp_path)]
+    for strategy in ("FedAdagrad", "FedAdam", "FedYogi"):
+        with pytest.raises(ValueError, match=f"strategy '{strategy}' is not supported"):
+            port_train.main(argv + ["--device", "cpu", "--strategy", strategy,
+                                    "--procedure", "pce"])
+    with pytest.raises(ValueError, match="--resume"):
+        port_train.main(argv + ["--device", "cpu", "--resume"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(multiprocessing, "get_context", lambda method: pytest.fail("spawned"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_train.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         port_runner.main(["--procedure", "pce", "--exp", "x", "--synthetic", "--distributed"])
+
+
+def test_train_cli_sharded_on_cpu(tmp_path, capsys):
+    """--sharded --device cpu runs the (1, 1) mesh in this process and
+    prints JAX's last line: {"final": the last record's floats, "best_dice"}.
+    The record holds each client's scalar round metrics (JAX's names; its
+    "ours" objective's vis_pred, which JAX's route cannot convert, is left
+    out), its val metrics, their weighted aggregates and the round's
+    duration."""
+    from fedicra_tpu.evaluation.metrics import METRIC_NAMES
+
+    result = port_train.main([
+        "--sharded", "--synthetic", "--device", "cpu", "--img_class", "odoc",
+        "--strategy", "FedICRA", "--procedure", "ours", "--model", "unet_lc_multihead",
+        "--img_size", "16", "--batch_size", "2", "--iters", "2", "--rep_iters", "1",
+        "--eval_iters", "2", "--max_iterations", "2", "--limit_per_client", "2",
+        "--snapshot_root", str(tmp_path), "--exp", "sharded",
+    ])
+    printed = _last_json(capsys.readouterr().out)
+    assert printed == json.loads(json.dumps(result))
+    assert set(printed) == {"final", "best_dice"}
+    per_client = ["loss_ce", "loss_tree", "loss_crf", "loss_lc", "total_loss", "lr"]
+    per_client += [f"{group}_{m}" for group in ("class1", "class2", "mean") for m in METRIC_NAMES]
+    want = {f"client_{c}_{k}" for c in range(5) for k in per_client}
+    assert set(printed["final"]) == want | {"val_mean_dice", "val_mean_hd95", "round_duration"}
+    assert np.isfinite([printed["final"][f"client_{c}_total_loss"] for c in range(5)]).all()
+    assert printed["best_dice"] == printed["final"]["val_mean_dice"]
+    lines = (tmp_path / "sharded" / "metrics.jsonl").read_text().splitlines()
+    assert [json.loads(line)["step"] for line in lines] == [2]
 
 
 def _last_json(out: str):

@@ -38,12 +38,16 @@ def test_port_files_were_found():
 
 def test_port_files_include_every_package_of_the_port():
     found = {p.parent.name for p in PORT_FILES}
-    assert {"federation", "data", "evaluation", "utils", "engine", "ops", "cli", "models"} <= found
+    assert {"federation", "data", "evaluation", "utils", "engine", "ops", "cli", "models",
+            "parallel"} <= found
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"fedicra_torch/models/pnet.py", "fedicra_torch/models/efficientunet.py",
             "fedicra_torch/ops/activations.py", "fedicra_torch/federation/transport.py",
             "fedicra_torch/evaluation/uncertainty.py", "fedicra_torch/ops/permutohedral.py",
-            "fedicra_torch/losses/gated_crf.py", "fedicra_torch/losses/dense_crf.py"} <= names
+            "fedicra_torch/losses/gated_crf.py", "fedicra_torch/losses/dense_crf.py",
+            "fedicra_torch/parallel/mesh.py", "fedicra_torch/parallel/data_axis.py",
+            "fedicra_torch/parallel/launch.py", "fedicra_torch/federation/sharded.py",
+            "fedicra_torch/federation/sharded_experiment.py"} <= names
 
 
 def _entry_calls(tmp_path):
@@ -61,6 +65,7 @@ def _entry_calls(tmp_path):
     from fedicra_torch.engine.config import TrainConfig
     from fedicra_torch.evaluation import evaluate_client, evaluate_uncertainty
     from fedicra_torch.federation import build_experiment
+    from fedicra_torch.federation.sharded_experiment import run_sharded
     from fedicra_torch.federation.transport import RemoteClientProxy, accept_clients
     from fedicra_torch.models import net_factory
 
@@ -111,6 +116,11 @@ def _entry_calls(tmp_path):
         "accept_clients": lambda: accept_clients("127.0.0.1", 0, 1, timeout=0.1),
         "cli.runner --distributed": lambda: runner_cli.main(
             ["--procedure", "pce", "--exp", "x", "--synthetic", "--distributed"]),
+        "run_sharded": lambda: run_sharded(cfg, synthetic=True, limit_per_client=2,
+                                           snapshot_dir=str(tmp_path / "sharded")),
+        "cli.train --sharded": lambda: train_cli.main(
+            ["--synthetic", "--sharded", "--img_size", "32", "--batch_size", "2",
+             "--limit_per_client", "2", "--snapshot_root", str(tmp_path)]),
     }
 
 
@@ -120,7 +130,7 @@ def _entry_calls(tmp_path):
               "make_round_fn amp", "init_client_state pnet", "init_client_state efficient_unet",
               "cli.train amp", "cli.train pnet", "cli.train efficient_unet",
               "evaluate_uncertainty", "RemoteClientProxy", "accept_clients",
-              "cli.runner --distributed"]
+              "cli.runner --distributed", "cli.train --sharded", "run_sharded"]
 )
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
