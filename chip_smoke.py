@@ -17,17 +17,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    attention, timed only); then the dense-CRF loss path: one forward and backward at that
    shape on the card (its launches counted), and the loss on the card
    against the CPU at a small input;
-4. the tree-energy chain at the main-path shape: MST, Euler tour and the
-   tree filter's forward and backward, each timed per call; one image's MST
-   and tree on the card against the same on the CPU, from the same weights;
+4. the tree-energy chain's plain route (``[tree-plain]``, PyTorch ops, off
+   the main path on the card) at the main-path shape: MST, Euler tour and
+   the DFS-ordered filter's forward and backward, each timed per call; one
+   image's MST and tree on the card against the same on the CPU, from the
+   same weights;
+4b. the tree chain's four kernels (``[tree-kernels]``, csrc/tree_filter.cu)
+   against their plain twins at the main-path shape, one step's four trees
+   (48 images): the MST bit for bit against ``boruvka_mst``, the BFS rooting
+   exactly and its weights at rtol 1e-6, the filter's forward (rtol 1e-4)
+   and backward (rtol 1e-3) and the same filter against the plain route's
+   on the same trees; each kernel timed per call and back to back beside its
+   twin and bound; each tree's BFS depth and widest level;
 5. the "ours" objective (tree term on) and ``treeenergy_add`` on the card
-   against the CPU at a small input;
+   (the kernel route) against the CPU (the plain route) at a small input;
 6. the tree-off round: one FedICRA local round of "ours" at
    tree_loss_weight=0, full-width unet_lc_multihead for ODOC (384^2, batch
    12, 5 clients, real dropout rates), 1 head step then 1 body step;
 7. the main path: the same round at the default tree_loss_weight=0.1,
-   2 head steps then 2 body steps; then one ``treeenergy_add`` step at that
-   shape;
+   2 head steps then 2 body steps, its tree term on the kernels (4 MST, 4
+   rooting, 16 forward and 16 backward filter launches, no plain filter
+   run), its first step again on the plain route (``loss_tree`` at rtol
+   1e-4); then one ``treeenergy_add`` step at that shape;
 8. the federation: build_experiment and FederatedServer.run for 2 rounds
    of FedICRA "ours" at the same width, 5 clients on synthetic ODOC data,
    ALA's first-run loop in round 2, the evaluation, checkpoints and a
@@ -66,17 +77,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
 Each path (3's loss, 6, 7 and its treeenergy_add step, 8 and its FedAdam
 round, 8b's (1, 1) run and each of its ranks, each route of 9 and 11, and
 10) runs with the launch counters set to 0 just before it and read just
-after. 13-15 launch
+after; each that trains "ours" shows the tree kernels' launches (one MST
+and one rooting launch, four filter forwards and four backwards a step)
+and no run of the plain route's filter. 13-15 launch
 a kernel of the port only as the reference they are compared with (13 the
 Gaussian filter, 15 the gated CRF); 12's processes launch the gated-CRF
 kernel, which their CUDA tensors cannot bypass, and this process cannot
 count. The last lines are the card's name and power limit, one JSON line
-of per-kernel numbers, and {"ok": true, "device": {...}}.
+of per-kernel numbers (the gated CRF, the Gaussian filter and the four
+tree kernels), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -520,10 +535,26 @@ def phase_gaussian_filter(dev):
                 bound_by=by, library_ms=library_ms)
 
 
-def phase_tree_chain(dev):
-    """MST, Euler tour and tree filter at the main-path shape, timed per call;
-    one image's MST and tree on the card against the CPU."""
-    from fedicra_torch.losses.tree_energy import mst_edge_weights, resize_linear
+def tree_guides(dev, rng, b: int, h: int, w: int, c: int):
+    """The four guides of a tree-on step: a smooth image (the low guide) and
+    aux logits upsampled 4x, 2x and 1x (the high guides), NHWC on ``dev``."""
+    from fedicra_torch.losses.tree_energy import resize_linear
+
+    low = torch.as_tensor(smooth_images(rng, b, h, w), device=dev)
+    highs = [
+        resize_linear(torch.as_tensor(rng.normal(size=(b, h // s, w // s, c)).astype(np.float32),
+                                      device=dev), (h, w))
+        for s in (4, 2, 1)
+    ]
+    return low, highs
+
+
+def phase_tree_plain(dev):
+    """The plain route's tree chain (PyTorch ops: the twins of the tree
+    kernels' route, off the main path on the card) at the main-path shape:
+    MST, Euler tour and DFS-ordered filter, timed per call; one image's MST
+    and tree on the card against the CPU, and the filter's forward and VJP."""
+    from fedicra_torch.losses.tree_energy import mst_edge_weights
     from fedicra_torch.ops.mst import boruvka_mst, grid_edges
     from fedicra_torch.ops.tree import TreeStructure, build_tree
     from fedicra_torch.ops.tree_filter import tree_filter_refine
@@ -531,12 +562,7 @@ def phase_tree_chain(dev):
     b, h, w, c = BATCH, IMG, IMG, 3
     V = h * w
     rng = np.random.default_rng(4)
-    low = torch.as_tensor(smooth_images(rng, b, h, w), device=dev)
-    highs = [
-        resize_linear(torch.as_tensor(rng.normal(size=(b, h // s, w // s, c)).astype(np.float32),
-                                      device=dev), (h, w))
-        for s in (4, 2, 1)
-    ]
+    low, highs = tree_guides(dev, rng, b, h, w, c)
     eu, ev = (torch.as_tensor(a, device=dev).long() for a in grid_edges(h, w))
 
     # the four trees of a step (low, then the three high guides) in one call
@@ -559,7 +585,7 @@ def phase_tree_chain(dev):
         for name, a_cpu, a_gpu in zip(TreeStructure._fields, tree_cpu, struct):
             if not torch.equal(a_cpu[0], a_gpu[k].cpu()):
                 raise AssertionError(f"build_tree of image {k}: {name} differs between card and CPU")
-    log(f"[tree] MST and tree of images 0 and {b} equal on card and CPU")
+    log(f"[tree-plain] MST and tree of images 0 and {b} equal on card and CPU")
 
     # the filter over the first high tree, its weights to the guide (4x upsampled)
     st = TreeStructure(*(a[b:2 * b] for a in struct))
@@ -583,18 +609,245 @@ def phase_tree_chain(dev):
     torch.testing.assert_close(y[:1].detach().cpu(), yc.detach(), rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(dx[:1].cpu(), dxc, rtol=1e-3, atol=1e-4 * dxc.abs().max().item())
     torch.testing.assert_close(dlogw[:1].cpu(), dlc, rtol=1e-3, atol=1e-4 * dlc.abs().max().item())
-    log(f"[tree] filter of image 0 on card vs CPU: y max |diff| "
+    log(f"[tree-plain] filter of image 0 on card vs CPU: y max |diff| "
         f"{(y[:1].detach().cpu() - yc.detach()).abs().max().item():.3g}")
-    log(f"[tree] per call at B={b}, {h}x{w}: MST of {4 * b} images {mst_ms:.3f} ms, "
-        f"build_tree of {4 * b} {tree_ms:.3f} ms, filter forward {fwd_ms:.3f} ms, "
-        f"filter backward {bwd_ms:.3f} ms (high tree: dx and dlogw); per step 1, 1, 4 and 4 calls")
+    log(f"[tree-plain] plain route per call at B={b}, {h}x{w}: MST of {4 * b} images "
+        f"{mst_ms:.3f} ms, build_tree of {4 * b} {tree_ms:.3f} ms, filter forward {fwd_ms:.3f} ms, "
+        f"filter backward {bwd_ms:.3f} ms (high tree: dx and dlogw); the main path takes the "
+        f"kernels ([tree-kernels])")
     del struct, sel, dist, y, dx, dlogw
     torch.cuda.empty_cache()
 
 
+def tree_chain_work(b: int, h: int, w: int, c: int, d: int, levels: int):
+    """(fp32 operations, bytes) that each tree kernel's function needs at
+    least, by kernel name, for one step's four trees of ``b`` images each
+    (guides of ``d`` channels for the rooting; filters of ``c`` classes,
+    whose high guides have ``c`` channels). ``levels`` is this run's sum of
+    (BFS levels + 1) over the 4b images: the level offsets' words.
+
+    Bytes: each input of the function read once and each output written once
+    (int32 indices, fp32 values, a byte a mask entry); what the design moves
+    beyond that is ``tree_chain_saved_bytes``. ``tree_mst`` reads the
+    weights [N, E] and writes the mask. ``tree_root`` reads the mask and the
+    guides and writes order, parent, ppos and w (V each) and the level
+    offsets. A filter's tree is order, ppos and w (the child ranges and
+    level offsets follow from ppos). ``tree_fwd`` reads x and the tree and
+    writes y. ``tree_bwd`` is the filter's VJP: it reads g, x and the tree
+    and writes dx; on a high tree it also reads the guide and writes d
+    embed. The filter rows are the mean of the step's four launches (the
+    low tree and three high trees), as the path runs them. Operations (an
+    FMA counts two): the weights' squared distances and scaling; the upward
+    pass's FMA a channel an edge, the downward pass's product and FMA a
+    channel and 1 - w^2 a vertex, the forward's divisions; the backward's
+    inputs, the same passes on 2C channels, and on a high tree the
+    crossing-pair sums (6 FMAs a channel a class, 4 more an edge) and d
+    embed's two terms an edge. The MST's comparisons are not fp32 work.
+    The dependency chain that binds the design is apart: one block step per
+    BFS level, once in tree_root, twice in each filter pass.
+    """
+    V, E, n = h * w, (h - 1) * w + h * (w - 1), 4 * b
+    two_pass = lambda k: (V - 1) * 2 * k + (V - 1) * (2 + 3 * k)
+    bwd_low = (b * (V * 3 * c + two_pass(2 * c)), b * 4 * (2 * V * c + 3 * V + V * c))
+    edge = (b * ((V - 1) * (12 * c + 4) + (V - 1) * 2 * 3 * c), b * 4 * 2 * V * c)
+    return {
+        "tree_mst": (0, n * E * 5),
+        "tree_root": (n * (V - 1) * (3 * d + 2), n * E + n * V * d * 4 + 4 * (4 * n * V + levels)),
+        "tree_fwd": (b * (two_pass(c + 1) + V * c), b * 4 * (V * c + 3 * V + V * c)),
+        "tree_bwd": tuple(lo + 3 * e / 4 for lo, e in zip(bwd_low, edge)),  # 1 low, 3 high
+    }
+
+
+def tree_chain_saved_bytes(b: int, h: int, w: int, c: int) -> int:
+    """Bytes a filter launch moves beyond its function's: the forward's A and
+    F ([x, 1] channels each), written by ``tree_fwd`` and read again by
+    ``tree_bwd``, where the native code recomputes them from x."""
+    return b * h * w * 2 * (c + 1) * 4
+
+
+def phase_tree_kernels(dev):
+    """The tree chain's four kernels against their plain twins at the main
+    path's shape: one step's four trees (``tree_guides``: the low guide and
+    the 4x, 2x and 1x upsampled highs), B=12, 384^2, C=3; then the filter's
+    forward and backward against the plain route's (DFS order) on the same
+    trees. Times each kernel per call and back to back, and its twin (a
+    filter's over the four trees in sequence, by launch); prints each tree's
+    BFS depth and widest level. Returns the four JSON rows (their launches
+    are filled in from the main path's run)."""
+    from fedicra_torch.losses.tree_energy import mst_edge_weights
+    from fedicra_torch.ops import tree_filter_cuda as tfc
+    from fedicra_torch.ops.mst import boruvka_mst, grid_edges
+    from fedicra_torch.ops.tree import build_tree
+    from fedicra_torch.ops.tree_filter import tree_filter
+
+    b, h, w, c = BATCH, IMG, IMG, 3
+    V, sigma = h * w, 0.02
+    rng = np.random.default_rng(4)
+    low, highs = tree_guides(dev, rng, b, h, w, c)
+    guides = [low, *highs]
+    eu, ev = (torch.as_tensor(a, device=dev).long() for a in grid_edges(h, w))
+    dist = mst_edge_weights(guides, eu, ev)
+    n = dist.shape[0]
+    times, errs = {}, {}
+
+    def timed(name, kernel, plain, plain_reps=3):
+        # the level-by-level twins take seconds a call; each ran once already
+        times[name] = (cuda_median_ms(kernel, reps=10, warmup=2), cuda_loop_ms(kernel, n=10, reps=3),
+                       cuda_median_ms(plain, reps=plain_reps, warmup=int(plain_reps > 1)))
+
+    # K1: bit for bit the plain route's MST on all 48 images
+    tfc.reset_launches()
+    sel = tfc.tree_mst_cuda(dist, h, w)
+    sel_plain = boruvka_mst(eu, ev, dist, V)
+    torch.cuda.synchronize()
+    differ = (sel != sel_plain).sum(dim=1)
+    if differ.any() or not (sel.sum(dim=1) == V - 1).all():
+        raise AssertionError(f"tree_mst: edges that differ from boruvka_mst per image {differ.tolist()}")
+    errs["tree_mst"] = float(differ.sum())
+    log(f"[tree-kernels] tree_mst: all {n} images select boruvka_mst's edges bit for bit")
+    timed("tree_mst", lambda: tfc.tree_mst_cuda(dist, h, w), lambda: boruvka_mst(eu, ev, dist, V))
+
+    # K2: the BFS twin's arrays exactly, its weights within rtol 1e-6
+    embed = torch.cat([g.reshape(b, V, -1) for g in guides]).contiguous()
+    tree = tfc.tree_root_cuda(sel, embed, h, w, b, sigma)
+    tree_p = tfc.tree_root_plain(sel, embed, h, w, b, sigma)
+    torch.cuda.synchronize()
+    for name in ("order", "parent", "ppos", "cptr", "n_levels"):
+        if not torch.equal(getattr(tree, name), getattr(tree_p, name)):
+            raise AssertionError(f"tree_root: {name} differs from the BFS twin's")
+    used = torch.arange(V + 1, device=dev) <= tree.n_levels[:, None].long()  # level[0..n_levels]
+    if not torch.equal(tree.level[used], tree_p.level[used]):
+        raise AssertionError("tree_root: level offsets differ from the BFS twin's")
+    # atol: the smallest normal fp32 (denormal weights)
+    torch.testing.assert_close(tree.w, tree_p.w, rtol=1e-6, atol=1.2e-38)
+    errs["tree_root"] = (tree.w - tree_p.w).abs().max().item()
+    n_levels = tree.n_levels.long().cpu()
+    work = tree_chain_work(b, h, w, c, low.shape[-1], int((n_levels + 1).sum()))
+    widths = torch.diff(tree.level.long(), dim=1).cpu()
+    names = ("low (smooth image)", "high, 4x upsampled", "high, 2x upsampled", "high, 1x (noise)")
+    depths = []
+    for k, name in enumerate(names):
+        imgs = range(k * b, (k + 1) * b)
+        depths.append(max(int(n_levels[i]) - 1 for i in imgs))
+        widest = max(int(widths[i, :n_levels[i]].max()) for i in imgs)
+        log(f"[tree-kernels] tree {k} ({name}): max BFS depth {depths[k]}, widest level {widest} "
+            f"vertices over its {b} images")
+    log(f"[tree-kernels] tree_root: order, parent, ppos, cptr, levels equal the BFS twin's; "
+        f"w max |diff| {errs['tree_root']:.3g}")
+    timed("tree_root", lambda: tfc.tree_root_cuda(sel, embed, h, w, b, sigma),
+          lambda: tfc.tree_root_plain(sel, embed, h, w, b, sigma), plain_reps=1)
+
+    # K3 and K4 on the step's four trees, chained as the path chains them:
+    # the low tree filters the probabilities and each high tree the y before
+    # it; the backward runs from the last tree to the low one, each dx the g
+    # of the tree before. Each kernel and its twin take the same inputs; the
+    # twin's one call a tree (seconds each) is its time.
+    def once_ms(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    trees = [tree.images(k * b, (k + 1) * b) for k in range(4)]
+    embs = [None] + [gd.reshape(b, V, c).contiguous() for gd in highs]
+    x = torch.softmax(torch.as_tensor(rng.normal(size=(b, V, c)).astype(np.float32), device=dev), -1)
+    g = torch.as_tensor(rng.normal(size=(b, V, c)).astype(np.float32), device=dev)
+    fwd_args, saved, plain_ms = [], [], {"tree_fwd": 0.0, "tree_bwd": 0.0}
+    cur = x
+    for k, t in enumerate(trees):
+        fwd_args.append((cur, t))
+        A, F, y = tfc.tree_filter_fwd_cuda(cur, t)
+        (_, _, y_p), ms = once_ms(lambda: tfc.tree_filter_fwd_plain(cur, t))
+        plain_ms["tree_fwd"] += ms / 4
+        torch.testing.assert_close(y, y_p, rtol=1e-4, atol=1e-5)
+        errs["tree_fwd"] = max(errs.get("tree_fwd", 0.0), (y - y_p).abs().max().item())
+        saved.append((y, A, F))
+        cur = y
+    bwd_args, cur = [None] * 4, g
+    for k in reversed(range(4)):
+        bwd_args[k] = (cur, *saved[k], trees[k], embs[k])
+        dx, de = tfc.tree_filter_bwd_cuda(*bwd_args[k])
+        (dx_p, de_p), ms = once_ms(lambda: tfc.tree_filter_bwd_plain(*bwd_args[k]))
+        plain_ms["tree_bwd"] += ms / 4
+        for got, want in ((dx, dx_p), (de, de_p))[:1 if de is None else 2]:
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4 * want.abs().max().item())
+            errs["tree_bwd"] = max(errs.get("tree_bwd", 0.0), (got - want).abs().max().item())
+        cur = dx
+    log(f"[tree-kernels] tree_fwd y and tree_bwd dx, d embed agree with the twins on all four "
+        f"trees, chained: max |diff| {errs['tree_fwd']:.3g}, {errs['tree_bwd']:.3g}")
+    for name, kernel, args in (("tree_fwd", tfc.tree_filter_fwd_cuda, fwd_args),
+                               ("tree_bwd", tfc.tree_filter_bwd_cuda, bwd_args)):
+        chain_of_four = lambda: [kernel(*a) for a in args]
+        per_tree = [cuda_median_ms(lambda: kernel(*a), reps=5, warmup=1) for a in args]
+        log(f"[tree-kernels] {name} per call by tree (depth): "
+            + ", ".join(f"{t:.4f} ms ({d})" for t, d in zip(per_tree, depths)))
+        times[name] = (cuda_median_ms(chain_of_four, reps=10, warmup=2) / 4,
+                       cuda_loop_ms(chain_of_four, n=10, reps=3) / 4, plain_ms[name])
+    log(f"[tree-kernels] the design's extra traffic: tree_fwd writes A and F and tree_bwd reads "
+        f"them, {tree_chain_saved_bytes(b, h, w, c) / 1e6:.1f} MB a launch each, beyond the bounds' "
+        f"bytes (the native code recomputes them from x)")
+
+    # the filter by the kernels (autograd) against the plain route's (DFS
+    # order) on the same trees: the plain route in float64 referees on all
+    # four, in fp32 as well on the low and the first high tree. The fp32
+    # plain route drifts from exact with a tree's depth, through its log
+    # path products (~1e-4 on y of the 1x noise tree), so there it is printed.
+    plain = functools.partial(tree_filter, sigma=sigma)
+    for k, name in enumerate(names):
+        low_tree = k == 0
+        e = guides[k].reshape(b, V, -1).contiguous()
+        struct = build_tree(eu, ev, sel[k * b:(k + 1) * b], V)
+        outs = {}
+        for route, filt, st, dt in (("kernels", tfc.tree_filter, trees[k], torch.float32),
+                                    ("plain fp32", plain, struct, torch.float32),
+                                    ("plain fp64", plain, struct, torch.float64)):
+            xr, er = x.to(dt).requires_grad_(True), e.to(dt).requires_grad_(not low_tree)
+            yr = filt(xr, er, st, low_tree=low_tree)
+            grads = torch.autograd.grad(yr, [xr] if low_tree else [xr, er], g.to(dt))
+            outs[route] = [yr.detach(), *grads]
+        gaps = {}
+        for route, ref in (("kernels", "plain fp64"), ("kernels", "plain fp32"), ("plain fp32", "plain fp64")):
+            want = outs[ref]
+            got = [t.to(want[0].dtype) for t in outs[route]]
+            gaps[f"{route} vs {ref}"] = [f"{(a - w_).abs().max().item():.3g}" for a, w_ in zip(got, want)]
+            if route == "kernels" and (ref == "plain fp64" or k < 2):
+                torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
+                for a, w_ in zip(got[1:], want[1:]):
+                    torch.testing.assert_close(a, w_, rtol=1e-3, atol=1e-4 * w_.abs().max().item())
+        log(f"[tree-kernels] tree {k} ({name}) on the same MST, max |diff| of y and the "
+            f"gradients: {gaps}")
+    del outs, struct, saved, fwd_args, bwd_args
+
+    chain = int(n_levels.max())
+    rows = []
+    replaces = {
+        "tree_mst": "fedicra_tpu/native/tree_filter_host.cpp:78",
+        "tree_root": "fedicra_tpu/native/tree_filter_host.cpp:131",
+        "tree_fwd": "fedicra_tpu/native/tree_filter_host.cpp:166",
+        "tree_bwd": "fedicra_tpu/native/tree_filter_host.cpp:230",
+    }
+    for name, (ms, loop_ms, plain_ms) in times.items():
+        bound, by = bound_ms(*work[name])
+        per = " (mean of the step's four launches)" if name in ("tree_fwd", "tree_bwd") else ""
+        log(f"[tree-kernels] {name}: per call{per} {ms:.4f} ms, back to back {loop_ms:.4f} ms; twin "
+            f"{plain_ms:.3f} ms; bound {bound:.4f} ms ({by}; {work[name][1] / 1e6:.1f} MB); "
+            f"dependency chain {'-' if name == 'tree_mst' else chain} levels")
+        rows.append(dict(name=name, route="cuda", source="fedicra_torch/csrc/tree_filter.cu",
+                         replaces=replaces[name], launches=None, max_abs_err=errs[name], ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None))
+    tfc.reset_launches()
+    del tree, tree_p, sel, sel_plain, dist, embed
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_small_agreement(dev):
     """The objective (tree term on), then ``treeenergy_add`` on the same
-    weights, on the card against the CPU (plain twins)."""
+    weights, on the card against the CPU (plain twins). The launch counts
+    show the route: the tree kernels and no plain filter on the card, the
+    plain filter and no kernel on the CPU."""
     from fedicra_torch.engine.config import TrainConfig
     from fedicra_torch.engine.objective import ours_loss, treeenergy_add_loss
     from fedicra_torch.engine.trainer import init_client_state
@@ -612,9 +865,23 @@ def phase_small_agreement(dev):
         model.train()
         batch = {"image": torch.as_tensor(image, device=device),
                  "label": torch.as_tensor(label, device=device)}
+        _reset_kernel_counts()
         loss, metrics = ours_loss(model, batch, 1, cfg)
         loss.backward()
+        counts = {"ours": _kernel_counts()}
+        _reset_kernel_counts()
         _, add = treeenergy_add_loss(model, batch, 1, cfg.replace(procedure="treeenergy_add"))
+        counts["treeenergy_add"] = _kernel_counts()
+        # on the CPU the four plain filters, forward and backward (treeenergy_add: forward)
+        if torch.device(device).type == "cpu":
+            want = {"ours": {**ZERO_COUNTS, "tree_filter_fwd": 4, "tree_filter_bwd": 4},
+                    "treeenergy_add": {**ZERO_COUNTS, "tree_filter_fwd": 4}}
+        else:
+            want = {"ours": tree_on_counts(1),
+                    "treeenergy_add": {**tree_on_counts(1, gated_crf=0), "tree_bwd": 0}}
+        log(f"[small] launches on {device}: {counts}")
+        if counts != want:
+            raise AssertionError(f"launches on {device} {counts}, expected {want}")
         results[str(device)] = (
             {k: v.item() for k, v in metrics.items() if v.ndim == 0},
             model.decoder.out_conv.weight.grad.cpu(),
@@ -713,7 +980,7 @@ def phase_round(dev, tag: str, treeenergy_add: bool = False, **setup):
     ``treeenergy_add`` it then takes one step of that objective
     (``treeenergy_add_step``)."""
     from fedicra_torch.models.params_filters import is_dsn_head, is_head, is_pcs
-    from fedicra_torch.ops import gated_crf_cuda, tree_filter
+    from fedicra_torch.ops import gated_crf_cuda
 
     cfg, cid, model, state, round_fn, batches = main_path_setup(dev, **setup)
     iters, rep = cfg.iters, cfg.rep_iters
@@ -734,10 +1001,10 @@ def phase_round(dev, tag: str, treeenergy_add: bool = False, **setup):
         if j == iters - rep - 1:
             snaps.append({n: p.detach().clone() for n, p in model.named_parameters()})
 
+    generator_state = state.generator.get_state()  # replays step 1's draws for the plain route
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gated_crf_cuda.reset_launches()
-    tree_filter.reset_calls()
+    _reset_kernel_counts()
     t0 = time.perf_counter()
     try:
         new, metrics = round_fn(state, batches, cid, on_step=on_step)
@@ -745,9 +1012,9 @@ def phase_round(dev, tag: str, treeenergy_add: bool = False, **setup):
         if remove_probe is not None:
             remove_probe()
     torch.cuda.synchronize()
-    launches = dict(gated_crf_cuda.launches)
+    counts = _kernel_counts()
+    launches = {"gated_crf": counts["gated_crf"]}
     by_dtype = dict(gated_crf_cuda.launches_by_dtype)
-    calls = dict(tree_filter.calls)
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     losses = metrics["total_loss"].float().cpu()
@@ -757,7 +1024,7 @@ def phase_round(dev, tag: str, treeenergy_add: bool = False, **setup):
         log(f"[{tag}] {k} per step {metrics[k].float().cpu().tolist()} ({metrics[k].dtype})")
     log(f"[{tag}] step ms {[round(float(s), 3) for s in steps]}")
     log(f"[{tag}] max_memory_allocated {peak:.3f} GiB")
-    log(f"[{tag}] kernel launches {launches} (by y dtype {by_dtype}); tree filter runs {calls}")
+    log(f"[{tag}] kernel launches {counts} (gated CRF by y dtype {by_dtype})")
 
     if losses.shape != (iters,) or not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite or misshapen losses {losses}")
@@ -766,14 +1033,15 @@ def phase_round(dev, tag: str, treeenergy_add: bool = False, **setup):
             raise AssertionError(f"{k} not finite")
     if tree_on and not (metrics["loss_tree"] > 0).all():
         raise AssertionError(f"loss_tree {metrics['loss_tree'].tolist()} at weight {cfg.tree_loss_weight}")
-    if launches != {"gated_crf": iters}:
-        raise AssertionError(f"expected one fused gated-CRF launch per step, got {launches}")
+    want = tree_on_counts(iters) if tree_on else {**ZERO_COUNTS, "gated_crf": iters}
+    if counts != want:
+        raise AssertionError(f"launches {counts}, expected {want}")
     want_dtype = "bfloat16" if cfg.amp else "float32"
     if by_dtype[want_dtype] != iters:
         raise AssertionError(f"expected {iters} gated-CRF launches on {want_dtype} y, got {by_dtype}")
-    n_filter = 4 * iters if tree_on else 0
-    if calls != {"tree_filter_fwd": n_filter, "tree_filter_bwd": n_filter}:
-        raise AssertionError(f"expected {n_filter} tree filter forwards and backwards, got {calls}")
+    if tree_on and not cfg.amp:
+        plain_route_first_step(model, state, generator_state, batches, cid, cfg,
+                               metrics["loss_tree"][0].item(), tag)
     if cfg.amp:
         log(f"[{tag}] dtypes of step 1's forwards (own and contrast): "
             + "; ".join(f"{k} {sorted(v)}" for k, v in sorted(dtypes.items())))
@@ -801,7 +1069,38 @@ def phase_round(dev, tag: str, treeenergy_add: bool = False, **setup):
         raise AssertionError(f"current_iter {new.current_iter}")
     if treeenergy_add:
         treeenergy_add_step(dev, model, state, batches, cid, cfg)
-    return dict(launches=launches, losses=losses.tolist(), steps=[float(x) for x in steps], peak=peak)
+    return dict(launches=counts, losses=losses.tolist(), steps=[float(x) for x in steps], peak=peak)
+
+
+def plain_route_first_step(model, state, generator_state, batches, cid: int, cfg,
+                           loss_tree: float, tag: str) -> None:
+    """The round's first forward again, from its weights and dropout draws,
+    and its tree term on the plain route (``host_offload=False``: PyTorch
+    ops, DFS-ordered filters); that ``loss_tree`` against the round's (the
+    kernel route's) at rtol 1e-4."""
+    from fedicra_torch.engine.objective import _forward
+    from fedicra_torch.losses.tree_energy import multi_scale_tree_energy_loss
+
+    model.load_state_dict({**state.params, **state.batch_stats})
+    model.train()
+    generator = torch.Generator(device=state.generator.device)
+    generator.set_state(generator_state)
+    images, labels = batches["image"][0].float(), batches["label"][0].long()
+    _reset_kernel_counts()
+    with torch.no_grad():
+        out = _forward(model, images, cid, cfg, generator)
+        loss, _, _, _ = multi_scale_tree_energy_loss(
+            out["logits"], images, *out["aux"], (labels == cfg.num_classes).float(),
+            cfg.tree_loss_weight, recursive=True, host_offload=False)
+    plain = loss.item()
+    counts = _kernel_counts()
+    rel = abs(plain - loss_tree) / abs(plain)
+    log(f"[{tag}] step 1 loss_tree: kernel route {loss_tree!r}, plain route {plain!r} "
+        f"(relative gap {rel:.3g}); plain route's launches {counts}")
+    if counts != {**ZERO_COUNTS, "tree_filter_fwd": 4}:
+        raise AssertionError(f"plain-route tree term launched {counts}")
+    if not math.isclose(plain, loss_tree, rel_tol=1e-4):
+        raise AssertionError(f"step 1 loss_tree {loss_tree!r} on the kernel route, {plain!r} on the plain")
 
 
 def treeenergy_add_step(dev, model, state, batches, cid: int, cfg) -> None:
@@ -834,7 +1133,7 @@ def treeenergy_add_step(dev, model, state, batches, cid: int, cfg) -> None:
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     if not grads or not all(torch.isfinite(g).all() for g in grads):
         raise AssertionError("treeenergy_add: missing or non-finite gradients")
-    want = {"gated_crf": 0, "gaussian_filter": 0, "tree_filter_fwd": 4, "tree_filter_bwd": 4}
+    want = tree_on_counts(1, gated_crf=0)
     if counts != want:
         raise AssertionError(f"treeenergy_add launches {counts}, expected {want}")
 
@@ -883,7 +1182,6 @@ def phase_federation(dev, snap: str, img: int = IMG, batch: int = BATCH, limit: 
     (``federation_fedadam``)."""
     from fedicra_torch.federation import build_experiment
     from fedicra_torch.models.params_filters import is_ala_gated
-    from fedicra_torch.ops import gated_crf_cuda, tree_filter
 
     cfg = federation_config(img, batch)
     server = build_experiment(cfg, synthetic=True, limit_per_client=limit, snapshot_dir=snap,
@@ -919,10 +1217,9 @@ def phase_federation(dev, snap: str, img: int = IMG, batch: int = BATCH, limit: 
     if torch.cuda.is_available():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    gated_crf_cuda.reset_launches()
-    tree_filter.reset_calls()
+    _reset_kernel_counts()
     history, wall = synced(lambda: server.run(num_rounds=2 * cfg.iters, progress=False))
-    launches, calls = dict(gated_crf_cuda.launches), dict(tree_filter.calls)
+    counts = _kernel_counts()
 
     for rec in history:
         log(f"[federation] round at iteration {rec['round']}: {rec['round_duration']:.3f} s; "
@@ -958,7 +1255,7 @@ def phase_federation(dev, snap: str, img: int = IMG, batch: int = BATCH, limit: 
         f"{final['val_avg_mean_dice']:.6f}")
     if torch.cuda.is_available():
         log(f"[federation] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"[federation] kernel launches {launches}; tree filter runs {calls}")
+    log(f"[federation] kernel launches {counts}")
 
     # ALA: skipped in round 1, the first-run loop in round 2's fit, one
     # epoch at its evaluate
@@ -1032,10 +1329,8 @@ def phase_federation(dev, snap: str, img: int = IMG, batch: int = BATCH, limit: 
         f"{[c.start_phase for c in again.clients]}")
 
     n_steps = cfg.num_clients * 2 * cfg.iters
-    if launches != {"gated_crf": n_steps}:
-        raise AssertionError(f"expected {n_steps} gated-CRF launches, got {launches}")
-    if calls != {"tree_filter_fwd": 4 * n_steps, "tree_filter_bwd": 4 * n_steps}:
-        raise AssertionError(f"expected {4 * n_steps} tree filter forwards and backwards, got {calls}")
+    if counts != tree_on_counts(n_steps):
+        raise AssertionError(f"launches {counts}, expected {tree_on_counts(n_steps)}")
     losses = [[rec[f"client_{c}_total_loss"] for c in range(cfg.num_clients)] for rec in history]
     del server, again
     torch.cuda.empty_cache()
@@ -1098,8 +1393,8 @@ def federation_fedadam(dev, fed_cfg, limit: int) -> None:
         f"{[round(v, 6) for v in losses]}; global payload against float64 FedAdam, max |diff| "
         f"{worst:.3g} on the {held} of {total} elements whose mean moved by > 1e-4, the rest "
         f"within eta; kernel launches {counts}")
-    if counts["gated_crf"] != 2:
-        raise AssertionError(f"expected 2 gated-CRF launches in the FedAdam round, got {counts}")
+    if counts != tree_on_counts(2):
+        raise AssertionError(f"FedAdam round launches {counts}, expected {tree_on_counts(2)}")
     del server
 
 
@@ -1224,8 +1519,9 @@ def hold_first_steps(tag: str, ranks: list, first: dict, mesh: tuple, cfg) -> No
         held = sorted(res["first"])
         if res["mesh"] != mesh or held != list(range(cfg.num_clients)):
             raise AssertionError(f"{tag}: mesh {res['mesh']}, clients {held}")
-        if res["launches"]["gated_crf"] != len(held) * cfg.iters:
-            raise AssertionError(f"{tag}: launches {res['launches']}")
+        if res["launches"] != tree_on_counts(len(held) * cfg.iters):
+            raise AssertionError(f"{tag}: launches {res['launches']}, expected "
+                                 f"{tree_on_counts(len(held) * cfg.iters)}")
         for c, (loss, stats) in res["first"].items():
             loss0, stats0 = first[c]
             worst_loss = max(worst_loss, abs(loss - loss0) / abs(loss0))
@@ -1304,10 +1600,8 @@ def phase_sharded(dev, in_process_losses: list, img: int = IMG, batch: int = BAT
         raise AssertionError(f"sharded losses {max(gaps):.3g} from the in-process route's")
     if not all(11 <= fed.ala_counters[c] <= 50 for c in range(5)):
         raise AssertionError(f"ALA's first run drew {fed.ala_counters} epochs")
-    want = {"gated_crf": n_steps, "gaussian_filter": 0, "tree_filter_fwd": 4 * n_steps,
-            "tree_filter_bwd": 4 * n_steps}
-    if counts != want:
-        raise AssertionError(f"sharded launches {counts}, expected {want}")
+    if counts != tree_on_counts(n_steps):
+        raise AssertionError(f"sharded launches {counts}, expected {tree_on_counts(n_steps)}")
     if not math.isfinite(history[-1]["val_mean_dice"]):
         raise AssertionError("sharded val_mean_dice not finite")
     del fed, inner
@@ -1344,17 +1638,33 @@ def phase_sharded(dev, in_process_losses: list, img: int = IMG, batch: int = BAT
 
 
 def _kernel_counts() -> dict:
-    from fedicra_torch.ops import gated_crf_cuda, gaussian_filter_cuda, tree_filter
+    """Every kernel's launches, and the plain tree filter's runs."""
+    from fedicra_torch.ops import gated_crf_cuda, gaussian_filter_cuda, tree_filter, tree_filter_cuda
 
-    return {**gated_crf_cuda.launches, **gaussian_filter_cuda.launches, **tree_filter.calls}
+    return {**gated_crf_cuda.launches, **gaussian_filter_cuda.launches,
+            **tree_filter_cuda.launches, **tree_filter.calls}
 
 
 def _reset_kernel_counts() -> None:
-    from fedicra_torch.ops import gated_crf_cuda, gaussian_filter_cuda, tree_filter
+    from fedicra_torch.ops import gated_crf_cuda, gaussian_filter_cuda, tree_filter, tree_filter_cuda
 
     gated_crf_cuda.reset_launches()
     gaussian_filter_cuda.reset_launches()
+    tree_filter_cuda.reset_launches()
     tree_filter.reset_calls()
+
+
+ZERO_COUNTS = {"gated_crf": 0, "gaussian_filter": 0, "tree_mst": 0, "tree_root": 0,
+               "tree_fwd": 0, "tree_bwd": 0, "tree_filter_fwd": 0, "tree_filter_bwd": 0}
+
+
+def tree_on_counts(steps: int, gated_crf: int = None) -> dict:
+    """The counts of ``steps`` tree-on steps: per step one MST and one rooting
+    launch for the four trees, four filter forwards and four backwards, and
+    no run of the plain route's filter; one gated-CRF launch a step unless
+    ``gated_crf`` says otherwise."""
+    return {**ZERO_COUNTS, "gated_crf": steps if gated_crf is None else gated_crf,
+            "tree_mst": steps, "tree_root": steps, "tree_fwd": 4 * steps, "tree_bwd": 4 * steps}
 
 
 def federated_round_flags(img: int = IMG, batch: int = BATCH) -> list:
@@ -1384,7 +1694,7 @@ def phase_cli(dev, fed_snapshot: str, img: int = IMG, batch: int = BATCH,
     from fedicra_torch.utils.profiling import StepTimer, annotate, trace
 
     timer = StepTimer()
-    zero = {"gated_crf": 0, "gaussian_filter": 0, "tree_filter_fwd": 0, "tree_filter_bwd": 0}
+    zero = ZERO_COUNTS
 
     def route(name, fn):
         """(result, printed lines, kernel counts, seconds, peak GiB) of one route."""
@@ -1425,7 +1735,7 @@ def phase_cli(dev, fed_snapshot: str, img: int = IMG, batch: int = BATCH,
         log(f"[cli] cli.train federated: {seconds / steps:.3f} s per local step (wall / {steps}, "
             f"data, evaluation and checkpoints included); best_dice {result['best_dice']:.6f}")
         finite_losses(result["final"], "cli.train federated", 5)
-        want = {**zero, "gated_crf": steps, "tree_filter_fwd": 4 * steps, "tree_filter_bwd": 4 * steps}
+        want = tree_on_counts(steps)
         if counts != want:
             raise AssertionError(f"cli.train federated: launches {counts}, expected {want}")
         # best_global is written when the weighted val dice beats 0 (the
@@ -1554,7 +1864,7 @@ def phase_models(dev, img: int = IMG, batch: int = BATCH) -> None:
     from torch_efficientnet_mirror import make_b3_state_dict
 
     timer = StepTimer()
-    zero = {"gated_crf": 0, "gaussian_filter": 0, "tree_filter_fwd": 0, "tree_filter_bwd": 0}
+    zero = ZERO_COUNTS
     steps = 5 * 2
     with tempfile.TemporaryDirectory(prefix="fedicra_models_") as tmp:
         weights = os.path.join(tmp, "efficientnet-b3.pth")
@@ -1914,13 +2224,15 @@ def main() -> int:
     gated_row = phase_gated_crf(dev)
     torch.cuda.empty_cache()
     gaussian_row = phase_gaussian_filter(dev)
-    phase_tree_chain(dev)
+    phase_tree_plain(dev)
+    tree_rows = phase_tree_kernels(dev)
     phase_small_agreement(dev)
     phase_round(dev, "tree-off", tree_loss_weight=0.0, iters=2, rep_iters=1)
     torch.cuda.empty_cache()
     main_run = phase_round(dev, "main", treeenergy_add=True)
-    gated_row["launches"] = main_run["launches"]["gated_crf"]
-    rows = [gated_row, gaussian_row]
+    for row in [gated_row, *tree_rows]:
+        row["launches"] = main_run["launches"][row["name"]]
+    rows = [gated_row, gaussian_row, *tree_rows]
     torch.cuda.empty_cache()
     phase_main_amp(dev, main_run)
     torch.cuda.empty_cache()

@@ -16,19 +16,33 @@ MST edge weights are ||dfeat||^2 + 1 and get no gradient. The filter
 weights are exp(-||dfeat||^2 / sigma) on the low tree (no gradient) and
 exp(-||dfeat||^2) on high trees (gradient to the aux logits).
 
-The JAX package runs one image at a time under vmap and, on the TPU, moves
-the chain to host C++. Here every stage runs batched on the tensors'
-device, and the low tree and the high trees are built in one batched MST
-and one batched Euler tour: they are independent; only the filters chain.
+Two routes compute the chain, as in the JAX package, picked by JAX's
+keyword ``host_offload``:
+
+- the native route, JAX's host C++ (``native/tree_filter_host.cpp``): on
+  this card it is the CUDA kernels of ``ops/tree_filter_cuda.py``: one
+  batched MST (K1) and one batched BFS rooting (K2) for the low tree and
+  the high trees together, then each filter's two passes (K3) and its
+  analytic backward (K4);
+- the plain route, JAX's pure path: ``ops/mst.py``, ``ops/tree.py`` and
+  ``ops/tree_filter.py`` in PyTorch ops, one batched MST and one batched
+  Euler tour, then the DFS-ordered filters.
+
+``host_offload=None`` (the default, as JAX's auto policy) takes the native
+route on CUDA tensors and the plain route on CPU tensors; ``False`` takes
+the plain route anywhere; ``True`` takes the native route and raises on
+CPU tensors (the port has no host C++ for the chain).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..ops import tree_filter_cuda
 from ..ops.activations import softmax
 from ..ops.mst import boruvka_mst, grid_edges
 from ..ops.tree import TreeStructure, build_tree
@@ -76,28 +90,59 @@ def mst_structures(guides: Sequence[torch.Tensor]) -> Tuple[TreeStructure, ...]:
     return tuple(TreeStructure(*(t[k * b:(k + 1) * b] for t in struct)) for k in range(len(guides)))
 
 
-def _filter_image(feature, embed, struct, *, sigma, low_tree):
-    """feature, embed: [B, H, W, C]; filter over the trees, back to NHWC."""
+@torch.no_grad()
+def native_structures(guides: Sequence[torch.Tensor], sigma: float) -> Tuple[tree_filter_cuda.BFSTree, ...]:
+    """One BFS-ordered tree per guide [B, H, W, D_k] from one MST call and one
+    rooting call over all guides' images; the first guide's tree is the low
+    tree (weights exp(-||d||^2 / sigma)), the others high (exp(-||d||^2))."""
+    b, h, w = guides[0].shape[:3]
+    eu, ev = (torch.as_tensor(a, device=guides[0].device).long() for a in grid_edges(h, w))
+    sel = tree_filter_cuda.tree_mst(mst_edge_weights(guides, eu, ev), h, w)
+    flats = [g.reshape(b, h * w, -1).float() for g in guides]
+    d_max = max(f.shape[-1] for f in flats)
+    # zero channels leave the distances as they are
+    embed = torch.cat([F.pad(f, (0, d_max - f.shape[-1])) for f in flats]).contiguous()
+    tree = tree_filter_cuda.tree_root(sel, embed, h, w, b, sigma)
+    return tuple(tree.images(k * b, (k + 1) * b) for k in range(len(guides)))
+
+
+def _filter_image(filt, feature, embed, struct, *, low_tree):
+    """feature, embed: [B, H, W, C]; ``filt`` over the trees, back to NHWC."""
     b, h, w, c = feature.shape
-    out = tree_filter(
-        feature.reshape(b, h * w, c), embed.reshape(b, h * w, -1), struct,
-        sigma=sigma, low_tree=low_tree,
-    )
+    out = filt(feature.reshape(b, h * w, c), embed.reshape(b, h * w, -1), struct, low_tree=low_tree)
     return out.reshape(b, h, w, c)
 
 
-def filter_chain(prob, low, highs, *, sigma: float, recursive: bool):
-    """The low-level filter, then the chain (or fan) of high-level ones.
+def filter_chain(prob, low, highs, *, sigma: float, recursive: bool, native: bool = False):
+    """The low-level filter, then the chain (or fan) of high-level ones, by
+    the native route (``native_structures``, the kernels on the card) or the
+    plain one (``mst_structures``).
 
     Returns (AS, [AS_1, ...]); all tensors NHWC.
     """
-    structs = mst_structures([low, *highs])
-    AS = _filter_image(prob, low, structs[0], sigma=sigma, low_tree=True)
+    guides = [low, *highs]
+    if native:  # sigma is in the trees' weights
+        structs, filt = native_structures(guides, sigma), tree_filter_cuda.tree_filter
+    else:
+        structs, filt = mst_structures(guides), functools.partial(tree_filter, sigma=sigma)
+    AS = _filter_image(filt, prob, low, structs[0], low_tree=True)
     outs, cur = [], AS
     for hf, st in zip(highs, structs[1:]):
-        cur = _filter_image(cur if recursive else AS, hf, st, sigma=sigma, low_tree=False)
+        cur = _filter_image(filt, cur if recursive else AS, hf, st, low_tree=False)
         outs.append(cur)
     return AS, outs
+
+
+def _use_host_offload(host_offload: Optional[bool], device: torch.device) -> bool:
+    """JAX's auto policy: the native route where it runs on the device (on
+    this port, CUDA tensors), the plain route elsewhere."""
+    if host_offload is None:
+        return device.type == "cuda"
+    if host_offload and device.type != "cuda":
+        raise ValueError(
+            f"host_offload=True needs CUDA tensors, got {device}: the port's native tree route "
+            "is CUDA kernels; CPU tensors take host_offload=None or False (the plain route)")
+    return bool(host_offload)
 
 
 def _prep(preds, low_feats, unlabeled_rois):
@@ -125,16 +170,19 @@ def tree_energy_loss(
     weight: float,
     *,
     sigma: float = 0.02,
+    host_offload: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-scale tree energy loss; returns (loss, AS).
 
     preds: logits [B, H, W, C]; low_feats: guide image [B, h, w, D];
     high_feats: aux logits or None; unlabeled_rois: [B, H, W].
+    ``host_offload`` picks the route (module docstring).
     """
     h, w = preds.shape[1:3]
+    native = _use_host_offload(host_offload, preds.device)
     prob, low, rois = _prep(preds, low_feats, unlabeled_rois)
     highs = [] if high_feats is None else [resize_linear(high_feats, (h, w))]
-    AS, outs = filter_chain(prob, low, highs, sigma=sigma, recursive=True)
+    AS, outs = filter_chain(prob, low, highs, sigma=sigma, recursive=True, native=native)
     AS = outs[-1] if outs else AS
     return weight * _roi_l1(prob, AS, rois), AS
 
@@ -150,15 +198,19 @@ def multi_scale_tree_energy_loss(
     *,
     sigma: float = 0.02,
     recursive: bool = True,
+    host_offload: Optional[bool] = None,
 ):
     """MScaleRecurve (``recursive=True``) or MScaleAdd tree energy loss.
 
-    Returns (loss, AS_1, AS_2, AS_3).
+    Returns (loss, AS_1, AS_2, AS_3). ``host_offload`` picks the route
+    (module docstring).
     """
     h, w = preds.shape[1:3]
+    native = _use_host_offload(host_offload, preds.device)
     prob, low, rois = _prep(preds, low_feats, unlabeled_rois)
     highs = [resize_linear(a, (h, w)) for a in (aux1, aux2, aux3)]
-    _, (AS_1, AS_2, AS_3) = filter_chain(prob, low, highs, sigma=sigma, recursive=recursive)
+    _, (AS_1, AS_2, AS_3) = filter_chain(prob, low, highs, sigma=sigma, recursive=recursive,
+                                         native=native)
     if recursive:
         loss = _roi_l1(prob, AS_3, rois)
     else:

@@ -1,5 +1,5 @@
-"""The CUDA wrappers (fused gated CRF, Gaussian filter): their checks here, their
-kernels on the card.
+"""The CUDA wrappers (fused gated CRF, Gaussian filter, the tree chain): their
+checks here, their kernels on the card.
 
 This file imports no JAX, so the tests marked ``cuda`` run on a machine with
 a card and no JAX stack (the repo's conftest imports JAX, hence
@@ -14,7 +14,7 @@ import torch
 
 from chip_smoke import confident_logits, smooth_images
 from fedicra_torch.losses.gated_crf import gated_crf_features
-from fedicra_torch.ops import gated_crf_cuda, gaussian_filter_cuda
+from fedicra_torch.ops import gated_crf_cuda, gaussian_filter_cuda, tree_filter_cuda
 
 
 @pytest.fixture
@@ -305,3 +305,59 @@ def test_gaussian_kernel_refuses_unsupported_shapes(cuda_device):
         gaussian_filter_cuda.gaussian_filter_cuda(f.double(), v.double())
     with pytest.raises(ValueError, match="differ in B, N"):
         gaussian_filter_cuda.gaussian_filter_cuda(f, v[:, :4].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, h, w, c", [(2, 12, 12, 3), (3, 17, 40, 2), (2, 64, 48, 4), (1, 1, 9, 1)])
+def test_tree_kernels_match_plain_twins(cuda_device, b, h, w, c):
+    """The four tree kernels against their twins on the same inputs: the MST
+    and the BFS arrays exactly (levels up to each image's count), the weights
+    at rtol 1e-6, the filter's y at rtol 1e-4 and its backward at rtol 1e-3;
+    one launch each."""
+    from fedicra_torch.ops.mst import grid_edges
+
+    rng = np.random.default_rng(h * w)
+    V = h * w
+    eu, ev = (torch.as_tensor(a, device=cuda_device).long() for a in grid_edges(h, w))
+    emb = torch.tensor(rng.normal(size=(2 * b, V, c)), dtype=torch.float32, device=cuda_device)
+    weights = ((emb[:, eu] - emb[:, ev]) ** 2).sum(-1) + 1.0
+    tree_filter_cuda.reset_launches()
+    sel = tree_filter_cuda.tree_mst(weights, h, w)
+    assert torch.equal(sel, tree_filter_cuda.tree_mst_plain(weights, h, w))
+    tree = tree_filter_cuda.tree_root(sel, emb, h, w, b, 0.02)
+    twin = tree_filter_cuda.tree_root_plain(sel, emb, h, w, b, 0.02)
+    for name in ("order", "parent", "ppos", "cptr", "n_levels"):
+        assert torch.equal(getattr(tree, name), getattr(twin, name)), name
+    used = torch.arange(V + 1, device=cuda_device) <= tree.n_levels[:, None].long()
+    assert torch.equal(tree.level[used], twin.level[used])
+    torch.testing.assert_close(tree.w, twin.w, rtol=1e-6, atol=1.2e-38)
+    high = tree.images(b, 2 * b)
+    x = torch.softmax(torch.tensor(rng.normal(size=(b, V, c)), dtype=torch.float32,
+                                   device=cuda_device), -1)
+    g = torch.tensor(rng.normal(size=(b, V, c)), dtype=torch.float32, device=cuda_device)
+    A, F, y = tree_filter_cuda.tree_filter_fwd_cuda(x, high)
+    torch.testing.assert_close(y, tree_filter_cuda.tree_filter_fwd_plain(x, high)[2],
+                               rtol=1e-4, atol=1e-5)
+    e = emb[b:].contiguous()
+    got = tree_filter_cuda.tree_filter_bwd_cuda(g, y, A, F, high, e)
+    want = tree_filter_cuda.tree_filter_bwd_plain(g, y, A, F, high, e)
+    for a, bb in zip(got, want):
+        torch.testing.assert_close(a, bb, rtol=1e-3, atol=1e-4 * bb.abs().max().item())
+    torch.cuda.synchronize()
+    assert tree_filter_cuda.launches == {"tree_mst": 1, "tree_root": 1, "tree_fwd": 1, "tree_bwd": 1}
+
+
+@pytest.mark.cuda
+def test_tree_kernels_refuse_unsupported_inputs(cuda_device):
+    h, w = 4, 5
+    E, V = tree_filter_cuda.num_grid_edges(h, w), h * w
+    with pytest.raises(ValueError, match="contiguous"):
+        tree_filter_cuda.tree_mst_cuda(torch.ones(2, E + 1, device=cuda_device), h, w)
+    with pytest.raises(ValueError, match="float32"):
+        tree_filter_cuda.tree_mst_cuda(torch.ones(2, E, device=cuda_device).double(), h, w)
+    sel = tree_filter_cuda.tree_mst_cuda(torch.rand(1, E, device=cuda_device) + 1, h, w)
+    with pytest.raises(ValueError, match="embedding channels"):
+        tree_filter_cuda.tree_root_cuda(sel, torch.zeros(1, V, 9, device=cuda_device), h, w, 1, 0.02)
+    tree = tree_filter_cuda.tree_root_cuda(sel, torch.zeros(1, V, 3, device=cuda_device), h, w, 1, 0.02)
+    with pytest.raises(ValueError, match="channels"):
+        tree_filter_cuda.tree_filter_fwd_cuda(torch.zeros(1, V, 5, device=cuda_device), tree)

@@ -1,0 +1,292 @@
+"""The port's native tree-chain route against fedicra_tpu's native C++ (CPU).
+
+``fedicra_torch/ops/tree_filter_cuda.py`` holds four CUDA kernels (MST
+selection, BFS rooting, the filter's forward, its backward) and a plain
+PyTorch twin of each, which CPU tensors take. The same numpy inputs go
+through each twin and through ``fedicra_tpu.native`` (``boruvka_mst_batch``,
+``tree_low_structure_build``, ``tree_filter_host_batch``), and through the
+port's losses and JAX's ``host_offload=True``.
+
+Tolerances: the MST, BFS order and parents are exact (a unique MST under the
+order (weight, edge index), and the same queue discipline). The filter
+weights w = exp(-dist / sigma) are held at rtol 1e-6: the twin forms dist as
+the native code compiles it (fused multiply-adds), and the exps of the two
+libraries differ by an ulp. The filter's output runs the same passes in the
+same order (rtol 1e-5 / atol 1e-6); its gradients add the crossing-pair
+terms in another order (rtol 2e-3 / atol 2e-5). The losses are held at
+``tests/test_tree_host.py``'s tolerances: value rtol 2e-4, AS rtol 2e-3 /
+atol 2e-5, gradients rtol 5e-3 / atol 2e-4 (the L1's sign can flip where
+prob and AS nearly meet).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fedicra_torch.losses import tree_energy as port_te
+from fedicra_torch.ops import tree_filter, tree_filter_cuda
+from fedicra_torch.ops.mst import grid_edges
+from fedicra_tpu import native
+from fedicra_tpu.losses import tree_energy as jax_te
+from torch_port_helpers import one_torch_thread, t  # noqa: F401
+
+SIGMA = 0.02
+SHAPES = [(2, 12, 12), (3, 13, 17), (4, 24, 24)]  # (B, H, W)
+
+
+@pytest.fixture
+def native_lib():
+    if not native.available():
+        pytest.skip("fedicra_tpu's native library is unavailable (no g++)")
+
+
+def _mst_weights(embed, eu, ev):
+    """||d embed||^2 + 1 per edge, [B, E] (numpy, as a guide's MST weights)."""
+    return np.stack([((e[eu] - e[ev]) ** 2).sum(-1) + 1.0 for e in embed]).astype(np.float32)
+
+
+def _noise(rng, b, v, d, scale=1.0):
+    return (scale * rng.uniform(size=(b, v, d))).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_mst_twin_equals_native_boruvka(native_lib, shape):
+    b, h, w = shape
+    eu, ev = grid_edges(h, w)
+    weights = _mst_weights(_noise(np.random.default_rng(h), b, h * w, 3), eu, ev)
+    got = tree_filter_cuda.tree_mst(torch.tensor(weights), h, w)
+    assert got.dtype == torch.bool and got.shape == weights.shape
+    np.testing.assert_array_equal(got.numpy(), native.boruvka_mst_batch(eu, ev, weights))
+    assert (got.sum(1) == h * w - 1).all()
+
+
+def _assert_tree_consistent(tree, h, w):
+    """Queue, parents, parent positions, child ranges and levels agree."""
+    V = h * w
+    order, parent, ppos = (a.long().numpy() for a in tree[:3])
+    cptr, level, nlev = tree.cptr.long().numpy(), tree.level.long().numpy(), tree.n_levels.numpy()
+    for b in range(order.shape[0]):
+        assert sorted(order[b]) == list(range(V)) and order[b, 0] == 0
+        q = np.arange(1, V)
+        np.testing.assert_array_equal(order[b, ppos[b, q]], parent[b, order[b, q]])
+        assert (ppos[b, q] < q).all()
+        assert (cptr[b, ppos[b, q]] <= q).all() and (q < cptr[b, ppos[b, q] + 1]).all()
+        assert cptr[b, V] == V and (np.diff(cptr[b]) >= 0).all()
+        depth = np.zeros(V, dtype=int)
+        for i in q:
+            depth[i] = depth[ppos[b, i]] + 1
+        assert nlev[b] == depth.max() + 1 and level[b, nlev[b]] == V
+        for L in range(nlev[b]):
+            assert (depth[level[b, L]:level[b, L + 1]] == L).all()
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_root_twin_equals_native_low_structure(native_lib, shape):
+    """The BFS queue and parents exactly, the low tree's weights at rtol 1e-6."""
+    b, h, w = shape
+    eu, ev = grid_edges(h, w)
+    low = _noise(np.random.default_rng(h + 1), b, h * w, 3)
+    parent, order, weights = native.tree_low_structure_build(low, eu, ev, SIGMA)
+    sel = tree_filter_cuda.tree_mst(torch.tensor(_mst_weights(low, eu, ev)), h, w)
+    tree = tree_filter_cuda.tree_root(sel, torch.tensor(low), h, w, b, SIGMA)
+    np.testing.assert_array_equal(tree.order.numpy(), order)
+    np.testing.assert_array_equal(tree.parent.numpy(), parent)
+    # atol: the smallest normal fp32; below it exp's result is denormal
+    np.testing.assert_allclose(tree.w.numpy(), weights, rtol=1e-6, atol=1.2e-38)
+    assert tree.w.numpy()[:, 1:].max() > 1e-3  # not all underflowed
+    _assert_tree_consistent(tree, h, w)
+
+
+def test_root_twin_gives_high_trees_unit_sigma():
+    """Images past ``n_low`` take exp(-dist), not exp(-dist / sigma)."""
+    h, w, b = 9, 11, 2
+    eu, ev = grid_edges(h, w)
+    emb = _noise(np.random.default_rng(3), 2 * b, h * w, 2)
+    sel = tree_filter_cuda.tree_mst(torch.tensor(_mst_weights(emb, eu, ev)), h, w)
+    tree = tree_filter_cuda.tree_root(sel, torch.tensor(emb), h, w, b, SIGMA)
+    order, parent = tree.order.long(), tree.parent.long()
+    e = torch.tensor(emb)
+    diff = e.gather(1, order[..., None].expand(-1, -1, 2)) - e.gather(
+        1, parent.gather(1, order)[..., None].expand(-1, -1, 2))
+    dist = (diff.double() ** 2).sum(-1)
+    want = torch.exp(-dist * torch.tensor([50.0] * b + [1.0] * b, dtype=torch.float64)[:, None])
+    want[:, 0] = 0.0
+    torch.testing.assert_close(tree.w.double(), want, rtol=2e-6, atol=1e-30)
+    _assert_tree_consistent(tree, h, w)
+
+
+@pytest.mark.parametrize("low_tree", [True, False], ids=["low", "high"])
+@pytest.mark.parametrize("c", [2, 3])
+def test_filter_twins_match_native_filter(native_lib, low_tree, c):
+    """K3's and K4's twins through ``TreeFilter`` against
+    ``tree_filter_host_batch``: y, dx and (high tree) d embed."""
+    b, h, w = 3, 16, 20
+    V = h * w
+    rng = np.random.default_rng(10 * c + low_tree)
+    eu, ev = grid_edges(h, w)
+    embed = _noise(rng, b, V, 3) if low_tree else rng.normal(size=(b, V, c)).astype(np.float32)
+    x = _noise(rng, b, V, c)
+    g = rng.normal(size=(b, V, c)).astype(np.float32)
+    y_n, dx_n, de_n = native.tree_filter_host_batch(embed, x, eu, ev, SIGMA, low_tree, gout=g)
+
+    sel = tree_filter_cuda.tree_mst(torch.tensor(_mst_weights(embed, eu, ev)), h, w)
+    tree = tree_filter_cuda.tree_root(sel, torch.tensor(embed), h, w, b if low_tree else 0, SIGMA)
+    xt, et = t(x).requires_grad_(True), t(embed).requires_grad_(not low_tree)
+    tree_filter_cuda.reset_launches()
+    y = tree_filter_cuda.tree_filter(xt, et, tree, low_tree=low_tree)
+    y.backward(t(g))
+    assert tree_filter_cuda.launches == {"tree_mst": 0, "tree_root": 0, "tree_fwd": 0, "tree_bwd": 0}
+    np.testing.assert_allclose(y.detach().numpy(), y_n, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(xt.grad.numpy(), dx_n, rtol=2e-3, atol=2e-5)
+    if low_tree:
+        assert et.grad is None
+    else:
+        np.testing.assert_allclose(et.grad.numpy(), de_n, rtol=2e-3, atol=2e-5)
+        assert np.abs(de_n).max() > 1e-2
+
+
+def test_filter_widens_bf16_feature():
+    """A bf16 feature is filtered in fp32 (y fp32); its gradient comes back bf16."""
+    b, h, w, c = 2, 8, 9, 3
+    rng = np.random.default_rng(4)
+    eu, ev = grid_edges(h, w)
+    embed = rng.normal(size=(b, h * w, c)).astype(np.float32)
+    sel = tree_filter_cuda.tree_mst(torch.tensor(_mst_weights(embed, eu, ev)), h, w)
+    tree = tree_filter_cuda.tree_root(sel, torch.tensor(embed), h, w, 0, SIGMA)
+    x16 = t(_noise(rng, b, h * w, c)).to(torch.bfloat16).requires_grad_(True)
+    x32 = x16.detach().float().requires_grad_(True)
+    g = t(rng.normal(size=(b, h * w, c)).astype(np.float32))
+    outs = [tree_filter_cuda.tree_filter(x, t(embed), tree, low_tree=False) for x in (x16, x32)]
+    assert outs[0].dtype == torch.float32 and torch.equal(outs[0], outs[1])
+    for out in outs:
+        out.backward(g)
+    assert x16.grad.dtype == torch.bfloat16
+    assert torch.equal(x16.grad, x32.grad.to(torch.bfloat16))
+
+
+def _loss_inputs(seed, b=2, h=24, w=24, c=3, aux_scales=(4, 2, 1)):
+    rng = np.random.default_rng(seed)
+    preds = rng.normal(size=(b, h, w, c)).astype(np.float32)
+    image = rng.uniform(size=(b, h, w, 3)).astype(np.float32)
+    aux = [rng.normal(size=(b, h // s, w // s, c)).astype(np.float32) for s in aux_scales]
+    rois = (rng.uniform(size=(b, h, w)) < 0.7).astype(np.float32)
+    return preds, image, aux, rois
+
+
+def _jax_native_loss(preds, image, aux, rois, recursive):
+    def f(p, a1, a2, a3):
+        out = jax_te.multi_scale_tree_energy_loss(
+            p, jnp.asarray(image), a1, a2, a3, jnp.asarray(rois), 0.1,
+            recursive=recursive, host_offload=True)
+        return out[0], out[1:]
+
+    (loss, AS), grads = jax.value_and_grad(f, argnums=(0, 1, 2, 3), has_aux=True)(
+        *(jnp.asarray(a) for a in (preds, *aux)))
+    return float(loss), [np.asarray(a) for a in AS], [np.asarray(g) for g in grads]
+
+
+def _port_loss(preds, image, aux, rois, recursive):
+    leaves = [t(a).requires_grad_(True) for a in (preds, *aux)]
+    loss, *AS = port_te.multi_scale_tree_energy_loss(
+        leaves[0], t(image), *leaves[1:], t(rois), 0.1, recursive=recursive)
+    loss.backward()
+    return loss.item(), [a.detach().numpy() for a in AS], [x.grad.numpy() for x in leaves]
+
+
+def _assert_losses_close(got, want, same_trees=True):
+    (loss, AS, grads), (loss_j, AS_j, grads_j) = got, want
+    np.testing.assert_allclose(loss, loss_j, rtol=2e-4, atol=1e-6)
+    for a, b in zip(AS, AS_j) if same_trees else ():
+        np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-5)
+    for a, b in zip(grads, grads_j):
+        np.testing.assert_allclose(a, b, rtol=5e-3, atol=2e-4)
+    assert all(np.abs(g).max() > 0 for g in grads)
+
+
+# Aux logits at full resolution, and upsampled 4x, 2x and 1x as the model's
+# are. Upsampling makes exact ties in the high trees' MST weights, which the
+# native C++ (fused multiply-adds) and the port's ``mst_edge_weights`` (a
+# channel sum) round apart, so a few edges differ and AS_k differs near them
+# (ROADMAP, "Tie-breaks"); the loss and the gradients stay inside their
+# tolerances, and AS_k is held only where both build the same trees.
+AUX_SCALES = [(1, 1, 1), (4, 2, 1)]
+
+
+@pytest.mark.parametrize("aux_scales", AUX_SCALES, ids=["full-res", "upsampled"])
+@pytest.mark.parametrize("recursive", [True, False], ids=["recursive", "additive"])
+def test_port_loss_matches_jax_host_offload(native_lib, recursive, aux_scales):
+    """The port's default route on CPU tensors (the plain one) against JAX's
+    native route."""
+    inputs = _loss_inputs(seed=20 + recursive, aux_scales=aux_scales)
+    tree_filter.reset_calls()
+    got = _port_loss(*inputs, recursive)
+    assert tree_filter.calls == {"tree_filter_fwd": 4, "tree_filter_bwd": 4}
+    _assert_losses_close(got, _jax_native_loss(*inputs, recursive), aux_scales == (1, 1, 1))
+
+
+@pytest.mark.parametrize("aux_scales", AUX_SCALES, ids=["full-res", "upsampled"])
+@pytest.mark.parametrize("recursive", [True, False], ids=["recursive", "additive"])
+def test_native_route_twins_match_jax_host_offload(native_lib, monkeypatch, recursive, aux_scales):
+    """The kernel route's composition (one MST and one rooting call for the
+    four trees, then the four filters) on its CPU twins against JAX's native
+    route."""
+    monkeypatch.setattr(port_te, "_use_host_offload", lambda host_offload, device: True)
+    inputs = _loss_inputs(seed=30 + recursive, aux_scales=aux_scales)
+    tree_filter.reset_calls()
+    got = _port_loss(*inputs, recursive)
+    assert tree_filter.calls == {"tree_filter_fwd": 0, "tree_filter_bwd": 0}
+    _assert_losses_close(got, _jax_native_loss(*inputs, recursive), aux_scales == (1, 1, 1))
+
+
+@pytest.mark.parametrize("with_high", [False, True], ids=["low-only", "with-high"])
+def test_native_route_equals_plain_route_single_scale(monkeypatch, with_high):
+    """``tree_energy_loss`` by both routes on the same inputs (same trees,
+    other filter arithmetic)."""
+    preds, image, aux, rois = _loss_inputs(seed=7, h=16, w=16, aux_scales=(1, 1, 1))
+    high = t(aux[0]) if with_high else None
+    plain = port_te.tree_energy_loss(t(preds), t(image), high, t(rois), 0.1)
+    monkeypatch.setattr(port_te, "_use_host_offload", lambda host_offload, device: True)
+    kernel_route = port_te.tree_energy_loss(t(preds), t(image), high, t(rois), 0.1)
+    np.testing.assert_allclose(kernel_route[0].item(), plain[0].item(), rtol=1e-5)
+    np.testing.assert_allclose(kernel_route[1].numpy(), plain[1].numpy(), rtol=1e-4, atol=1e-6)
+
+
+def test_host_offload_dispatch_on_cpu_tensors():
+    """None and False take the plain route on CPU tensors; True raises."""
+    preds, image, aux, rois = _loss_inputs(seed=9, h=12, w=12)
+    preds, image, rois, aux = t(preds), t(image), t(rois), [t(a) for a in aux]
+    tree_filter_cuda.reset_launches()
+    for host_offload in (None, False):
+        tree_filter.reset_calls()
+        port_te.multi_scale_tree_energy_loss(preds, image, *aux, rois, 0.1, host_offload=host_offload)
+        assert tree_filter.calls == {"tree_filter_fwd": 4, "tree_filter_bwd": 0}
+        tree_filter.reset_calls()
+        port_te.tree_energy_loss(preds, image, aux[2], rois, 0.1, host_offload=host_offload)
+        assert tree_filter.calls == {"tree_filter_fwd": 2, "tree_filter_bwd": 0}
+    with pytest.raises(ValueError, match="host_offload=True needs CUDA tensors"):
+        port_te.multi_scale_tree_energy_loss(preds, image, *aux, rois, 0.1, host_offload=True)
+    with pytest.raises(ValueError, match="host_offload=True needs CUDA tensors"):
+        port_te.tree_energy_loss(preds, image, None, rois, 0.1, host_offload=True)
+    assert tree_filter_cuda.launches == {"tree_mst": 0, "tree_root": 0, "tree_fwd": 0, "tree_bwd": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_before_launching():
+    h, w, b, c = 4, 5, 1, 2
+    E, V = tree_filter_cuda.num_grid_edges(h, w), h * w
+    tree_filter_cuda.reset_launches()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tree_filter_cuda.tree_mst_cuda(torch.ones(b, E), h, w)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tree_filter_cuda.tree_root_cuda(torch.ones(b, E, dtype=torch.bool), torch.zeros(b, V, c),
+                                        h, w, b, SIGMA)
+    sel = tree_filter_cuda.tree_mst(torch.rand(b, E), h, w)
+    tree = tree_filter_cuda.tree_root(sel, torch.rand(b, V, c), h, w, b, SIGMA)
+    x = torch.rand(b, V, c)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tree_filter_cuda.tree_filter_fwd_cuda(x, tree)
+    A, F, y = tree_filter_cuda.tree_filter_fwd_plain(x, tree)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tree_filter_cuda.tree_filter_bwd_cuda(x, y, A, F, tree, None)
+    assert tree_filter_cuda.launches == {"tree_mst": 0, "tree_root": 0, "tree_fwd": 0, "tree_bwd": 0}

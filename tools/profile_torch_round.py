@@ -32,6 +32,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # convolution: cuDNN's batch-norm kernels carry "cudnn" in their names).
 FAMILIES = (
     ("gated_crf", ("gated_crf",)),  # gated_crf_fused_kernel
+    # csrc/tree_filter.cu: MST, BFS rooting, the filter's forward and backward
+    ("tree_kernels", ("mst_kernel", "root_kernel", "filter_fwd_kernel", "filter_bwd_kernel")),
     ("sort", ("sort", "radix")),
     ("gather_scatter", ("gather", "scatter", "index")),
     ("batch_norm", ("batch_norm", "bn_", "batchnorm", "welford")),
@@ -57,7 +59,7 @@ def main() -> int:
         print("profile_torch_round: needs a CUDA card", file=sys.stderr)
         return 2
 
-    from chip_smoke import main_path_setup
+    from chip_smoke import card_name_and_power, main_path_setup
     from fedicra_torch.ops import _build
 
     torch.backends.cudnn.allow_tf32 = False
@@ -123,7 +125,7 @@ def main() -> int:
     for name, (ms, _) in by_kernel.items():
         fams[family(name)] += ms
 
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"card: {torch.cuda.get_device_name(0)} ({card_name_and_power()})")
     print(f"round of {cfg.iters} steps ({cfg.iters - cfg.rep_iters} head, {cfg.rep_iters} body) at "
           f"tree_loss_weight {cfg.tree_loss_weight}: step ms {[round(float(s), 3) for s in steps]}, "
           f"peak memory {peak_gib:.3f} GiB; profiled round wall {wall_ms:.3f} ms")
