@@ -28,7 +28,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    exactly and its weights at rtol 1e-6, the filter's forward (rtol 1e-4)
    and backward (rtol 1e-3) and the same filter against the plain route's
    on the same trees; each kernel timed per call and back to back beside its
-   twin and bound; each tree's BFS depth and widest level;
+   twin and bound; each tree's BFS depth and widest level; each filter
+   pass's time and ns a level by tree (the passes kernel's %globaltimer
+   stamps, with the passes' consumer-warp count) and on a path-shaped
+   tree;
 5. the "ours" objective (tree term on) and ``treeenergy_add`` on the card
    (the kernel route) against the CPU (the plain route) at a small input;
 6. the tree-off round: one FedICRA local round of "ours" at
@@ -535,6 +538,19 @@ def phase_gaussian_filter(dev):
                 bound_by=by, library_ms=library_ms)
 
 
+def serpentine_weights(h: int, w: int) -> np.ndarray:
+    """MST weights [E] whose tree is one path from vertex 0 through every row
+    in turn (left to right, then right to left): V levels of one vertex."""
+    from fedicra_torch.ops.mst import grid_edges
+
+    eu, ev = grid_edges(h, w)
+    i, j = eu // w, eu % w
+    horizontal = ev == eu + 1
+    # the vertical edge at the end of each row: the right end below even rows, the left below odd
+    turn = ~horizontal & (j == np.where(i % 2 == 0, w - 1, 0))
+    return np.where(horizontal | turn, 1.0, 10.0).astype(np.float32)
+
+
 def tree_guides(dev, rng, b: int, h: int, w: int, c: int):
     """The four guides of a tree-on step: a smooth image (the low guide) and
     aux logits upsampled 4x, 2x and 1x (the high guides), NHWC on ``dev``."""
@@ -644,7 +660,7 @@ def tree_chain_work(b: int, h: int, w: int, c: int, d: int, levels: int):
     crossing-pair sums (6 FMAs a channel a class, 4 more an edge) and d
     embed's two terms an edge. The MST's comparisons are not fp32 work.
     The dependency chain that binds the design is apart: one block step per
-    BFS level, once in tree_root, twice in each filter pass.
+    BFS level in tree_root, and in each filter pass a step per level.
     """
     V, E, n = h * w, (h - 1) * w + h * (w - 1), 4 * b
     two_pass = lambda k: (V - 1) * 2 * k + (V - 1) * (2 + 3 * k)
@@ -656,6 +672,29 @@ def tree_chain_work(b: int, h: int, w: int, c: int, d: int, levels: int):
         "tree_fwd": (b * (two_pass(c + 1) + V * c), b * 4 * (V * c + 3 * V + V * c)),
         "tree_bwd": tuple(lo + 3 * e / 4 for lo, e in zip(bwd_low, edge)),  # 1 low, 3 high
     }
+
+
+def tree_pass_times(name: str, kernel, args, n_levels, b: int) -> None:
+    """Each tree's upward and downward pass, from the passes kernel's
+    %globaltimer stamps (start, between the passes, end of each image's
+    block): the slowest image's ms and the mean over images of ns per level."""
+    from fedicra_torch.ops import tree_filter_cuda as tfc
+
+    names = ("low", "high 4x", "high 2x", "high 1x")
+    parts = []
+    for k, a in enumerate(args):
+        kernel(*a)  # warm
+        stamps = torch.zeros((b, 3), dtype=torch.int64, device=a[0].device)
+        kernel(*a, stamps=stamps)
+        torch.cuda.synchronize()
+        st = stamps.cpu().double()
+        levels = n_levels[k * b:(k + 1) * b].double()
+        up, down = st[:, 1] - st[:, 0], st[:, 2] - st[:, 1]
+        parts.append(f"{names[k]} up {up.max().item() / 1e6:.4f} ms ({(up / levels).mean().item():.1f} "
+                     f"ns a level), down {down.max().item() / 1e6:.4f} ms "
+                     f"({(down / levels).mean().item():.1f} ns a level)")
+    log(f"[tree-kernels] {name} passes by tree (%globaltimer, {tfc.consumer_warps()} consumer warps): "
+        + "; ".join(parts))
 
 
 def tree_chain_saved_bytes(b: int, h: int, w: int, c: int) -> int:
@@ -785,6 +824,24 @@ def phase_tree_kernels(dev):
             + ", ".join(f"{t:.4f} ms ({d})" for t, d in zip(per_tree, depths)))
         times[name] = (cuda_median_ms(chain_of_four, reps=10, warmup=2) / 4,
                        cuda_loop_ms(chain_of_four, n=10, reps=3) / 4, plain_ms[name])
+        tree_pass_times(name, kernel, args, n_levels, b)
+    # the per-level floor: a path-shaped tree of one image (V levels of one vertex)
+    sw = torch.as_tensor(serpentine_weights(h, w), device=dev)[None].contiguous()
+    path = tfc.tree_root_cuda(tfc.tree_mst_cuda(sw, h, w), embed[:1].contiguous(), h, w, 0, sigma)
+    xp, gp = x[:1].contiguous(), g[:1].contiguous()
+    Ap, Fp, yp = tfc.tree_filter_fwd_cuda(xp, path)
+    floor = []
+    for name, call in (("tree_fwd", lambda st: tfc.tree_filter_fwd_cuda(xp, path, stamps=st)),
+                       ("tree_bwd", lambda st: tfc.tree_filter_bwd_cuda(gp, yp, Ap, Fp, path, None,
+                                                                        stamps=st))):
+        stamps = torch.zeros((1, 3), dtype=torch.int64, device=dev)
+        call(stamps)
+        torch.cuda.synchronize()
+        st = stamps[0].cpu().double()
+        floor.append(f"{name} up {(st[1] - st[0]).item() / V:.1f}, down {(st[2] - st[1]).item() / V:.1f}")
+    log(f"[tree-kernels] a path-shaped tree ({V} levels of one vertex, one image), ns a level: "
+        + "; ".join(floor))
+    del path, Ap, Fp, yp
     log(f"[tree-kernels] the design's extra traffic: tree_fwd writes A and F and tree_bwd reads "
         f"them, {tree_chain_saved_bytes(b, h, w, c) / 1e6:.1f} MB a launch each, beyond the bounds' "
         f"bytes (the native code recomputes them from x)")

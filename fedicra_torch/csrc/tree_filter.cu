@@ -1,5 +1,6 @@
 // The tree-energy chain for sm_90a: MST selection, BFS rooting, the two-pass
-// tree filter and its analytic backward, one kernel each (K1-K4).
+// tree filter and its analytic backward (K1-K4; K3 and K4 a few launches
+// each).
 //
 // Replaces the native route of fedicra_tpu (host C++ there, one CPU thread
 // per image):
@@ -7,12 +8,15 @@
 //                          native/tree_filter_host.cpp mst_select (:78)
 //   K2 root_kernel      <- tree_filter_host.cpp root_tree (:131), finish_tree
 //                          (:124) and build_level's weights (:434)
-//   K3 filter_fwd_kernel<- tree_filter_host.cpp two_pass_ord_t (:166) on
-//                          [x, 1], y = F_x / F_1 (filter_one :283-300,
-//                          level_forward :468)
-//   K4 filter_bwd_kernel<- the same two-pass on [g/z, g*y/z] for dx, then the
-//                          crossing-pair edge gradient and d embed
-//                          (filter_one :303-336, level_backward :489)
+//   K3 (filter forward) <- tree_filter_host.cpp two_pass_ord_t (:166) on
+//                          [x, 1], y = F_x / F_1 (filter_one :230, :266-280,
+//                          level_forward :468): fwd_gather_kernel,
+//                          tree_pass_kernel, fwd_scatter_kernel
+//   K4 (backward)       <- the same two passes on [g/z, g*y/z] for dx, then
+//                          the crossing-pair edge gradient and d embed
+//                          (filter_one :283-336, level_backward :489):
+//                          bwd_gather_kernel, tree_pass_kernel,
+//                          bwd_scatter_kernel, dembed_kernel
 //
 // Grids are 4-connected, H x W, V = H*W vertices, edges as ops/mst.py
 // grid_edges lists them: vertical edges first, edge i*W + j joins (i, j) and
@@ -62,34 +66,71 @@
 // trees at 384^2 in chip_smoke.py's [tree-kernels]), each a few dependent
 // L2 loads and a block scan.
 //
-// K3 (filter forward) and K4 (backward). Over the tree in queue order, one
-// block per image, levels in turn: upward A[q] = in[q] + sum over children r
-// (pulled in decreasing position, as two_pass_ord_t pushes them) of
-// w[r] A[r], deepest level first; downward F[q] = A[q](1 - w_q^2) +
-// w_q F[ppos[q]], root first. No atomics: a level reads only the level below
-// (upward) or above (downward), finished before a __syncthreads. K3 runs on
-// [x, 1], keeps A and F (C + 1 channels, for the backward) and writes
-// y = F_x / F_1 in vertex order. K4 runs on [g/z, g*y/z] (2C channels) for
-// dx = F_{g/z}; for a high tree (w = exp(-dist)) it then forms each edge's
-// dL/d dist = -w dL/dw from the crossing-pair decomposition (in parallel over
-// all vertices) and d embed by gathering, at each vertex, its own edge's term
-// and its children's, so the scatter of filter_one becomes a deterministic
-// pull. The low tree's guide gets no gradient. K4 computes in double (its
-// passes, their scratch, dL/d dist and d embed) and rounds dx and d embed
-// once: on the last tree of a chain, whose input has been filtered three
-// times, d embed is ~1e-3 of the terms it is the difference of, and fp32
-// passes put a few of its entries 1.3e-4 of its largest away from exact.
-// Bound: bytes (the functions' own: K3 reads x and the tree, writes y,
-// 64 MB for 12 images at 384^2: 0.02 ms; K4, the VJP, reads g, x, the tree
-// and on a high tree the guide, writes dx and d embed: 117 MB a launch on
-// average over a step's four, 0.035 ms); the design saves A and F for K4
-// (57 MB written, then read) and is bound by the dependency chain of two
-// passes over the levels, each level a few dependent L2 or DRAM loads (a
-// vertex's children's loads are issued together) and a __syncthreads, and
-// one block per image uses 12 of 132 SMs.
+// K3 (filter forward) and K4 (backward). The arithmetic is two passes over
+// the tree in BFS queue order: upward A[q] = in[q] + sum over children r
+// (pulled last to first, as two_pass_ord_t pushes them) of w[r] A[r],
+// deepest level first; downward F[q] = A[q](1 - w_q^2) + w_q F[ppos[q]],
+// root first. No atomics: a level reads only the level below (upward) or
+// above (downward). K3 runs on [x, 1] (C + 1 channels) and gives
+// y = F_x / F_1, A and F (kept for the backward); K4 runs on [g/z, g*y/z]
+// (2C channels) for dx = F_{g/z} and, for a high tree (w = exp(-dist)),
+// forms each edge's dL/d dist = -w dL/dw from the crossing-pair
+// decomposition and d embed by gathering, at each vertex, its own edge's
+// term and its children's: the scatter of filter_one becomes a
+// deterministic pull. The low tree's guide gets no gradient. K4 computes in
+// double (its passes, their scratch, dL/d dist and d embed) and rounds dx
+// and d embed once: on the last tree of a chain, whose input has been
+// filtered three times, d embed is ~1e-3 of the terms it is the difference
+// of. Each is a few launches (in tree_filter_host.cpp):
+//   K3a fwd_gather_kernel  <- filter_one's gather of [x, 1] into BFS order
+//                             (:266-273), and each position's record (w,
+//                             first child, end of children, ppos)
+//   K3b, K4b tree_pass_kernel <- two_pass_ord_t (:166), level_forward (:468)
+//                             and level_backward (:489): the two passes
+//   K3c fwd_scatter_kernel <- filter_one :276-280: y = F_x / F_1 back to
+//                             vertex order; A out of the padded scratch
+//   K4a bwd_gather_kernel  <- filter_one :283-295: [g/z, g*y/z] in double,
+//                             z = F_1, in queue order; the records
+//   K4c bwd_scatter_kernel <- filter_one :298-301 (dx back to vertex order)
+//                             and the crossing-pair sums (:306-320)
+//   K4d dembed_kernel      <- filter_one :321-335 (its scatter to embed)
+// (filter_one is :230; a, c and d run over all B x V positions, on every SM.)
+// Bound: still bytes (the functions' own: K3 reads x and the tree, writes y,
+// 64 MB for 12 images at 384^2: 0.0190 ms; K4, the VJP, reads g, x, the
+// tree and on a high tree the guide, writes dx and d embed: 117 MB a launch
+// on average over a step's four, 0.0349 ms). The design is bound instead by
+// depth x the per-level floor: a pass is a chain of 2,379-3,377 dependent
+// levels of ~50 vertices (at most ~300), one block an image. The passes'
+// block keeps each level's dependent loads in shared memory and its
+// per-level work small:
+// - the queue is walked monotonically (upward from the last position to the
+//   first, downward from the first), and the level a level reads is next
+//   to it in the queue, so a window of NT tiles of TP positions (a ring:
+//   position q in row q % (NT TP)) holds the inputs, the records and the A
+//   (upward) or F (downward) just computed, written in place over the
+//   inputs: a level's loads are ld.shared, issued together (a missing
+//   child's predicated off, read as 0), and its sums explicit FMAs;
+// - one producer warp keeps cp.async.bulk (TMA) loads of the next tiles in
+//   flight, each completing on the tile's "full" mbarrier. Once the pass
+//   has left a tile, the consumers fence their writes to it
+//   (fence.proxy.async), and one of them sends its rows (A upward, F
+//   downward) to device memory by a bulk store and frees the slot of the
+//   tile before it on that slot's "empty" mbarrier when that tile's store
+//   has read shared memory: no level stores to device memory. The scratch
+//   is padded to PAD positions an image, so every tile is 16-byte aligned
+//   whatever V is;
+// - only the WARPS consumer warps wait at a level, on a named barrier
+//   (bar.sync 1); the producer never does;
+// - the level offsets are copied into shared memory when they fit
+//   (LEVEL_CAP), else read 32 at a time into a warp's lanes, a batch ahead;
+// - an image whose levels do not all fit the window (a level with the
+//   level it reads spanning more than NT - 1 tiles) runs both passes on
+//   device memory instead, in the same kernel; a path-shaped tree (V - 1
+//   levels of one vertex) is the narrowest case of the window.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -340,65 +381,6 @@ struct Tree {
   const float* w;
 };
 
-// Upward then downward pass over CH channels in queue order, for image b.
-// load_in(q, v, vals) gives the input row of queue position q (vertex v);
-// A, F are this image's [V, CH] rows; store_out(q, v, F row) runs once per
-// position in the downward pass.
-// T is the type of the sums and of A, F (float in K3, double in K4).
-template <int CH, class T, class LoadIn, class StoreOut>
-__device__ __forceinline__ void two_pass(const Tree& t, int V, T* A, T* F, LoadIn load_in,
-                                         StoreOut store_out) {
-  const int nlev = t.nlev[0];
-  for (int L = nlev - 1; L >= 0; --L) {
-    const int s = t.level[L], e = t.level[L + 1];
-    for (int q = s + threadIdx.x; q < e; q += blockDim.x) {
-      T acc[CH];
-      load_in(q, t.order[q], acc);
-      // children last to first: every child's loads are issued (predicated,
-      // up to the most a vertex has) before the first is summed
-      const int c0 = t.cptr[q], c1 = t.cptr[q + 1];
-      T wk[MAX_CHILDREN], ak[MAX_CHILDREN][CH];
-#pragma unroll
-      for (int k = 0; k < MAX_CHILDREN; ++k) {
-        const int r = c1 - 1 - k;
-        const bool has = r >= c0;
-        wk[k] = has ? T(t.w[r]) : T(0);
-#pragma unroll
-        for (int c = 0; c < CH; ++c) ak[k][c] = has ? A[(size_t)r * CH + c] : T(0);
-      }
-#pragma unroll
-      for (int k = 0; k < MAX_CHILDREN; ++k) {
-        if (c1 - 1 - k < c0) break;
-#pragma unroll
-        for (int c = 0; c < CH; ++c) acc[c] += wk[k] * ak[k][c];
-      }
-#pragma unroll
-      for (int c = 0; c < CH; ++c) A[(size_t)q * CH + c] = acc[c];
-    }
-    __syncthreads();
-  }
-  for (int L = 0; L < nlev; ++L) {
-    const int s = t.level[L], e = t.level[L + 1];
-    for (int q = s + threadIdx.x; q < e; q += blockDim.x) {
-      T f[CH];
-      if (q == 0) {
-#pragma unroll
-        for (int c = 0; c < CH; ++c) f[c] = A[c];  // root: w = 0
-      } else {
-        const T wq = t.w[q];
-        const T k = T(1) - wq * wq;
-        const T* fp = F + (size_t)t.ppos[q] * CH;
-#pragma unroll
-        for (int c = 0; c < CH; ++c) f[c] = A[(size_t)q * CH + c] * k + wq * fp[c];
-      }
-#pragma unroll
-      for (int c = 0; c < CH; ++c) F[(size_t)q * CH + c] = f[c];
-      store_out(q, t.order[q], f);
-    }
-    __syncthreads();
-  }
-}
-
 __device__ Tree image_tree(const Tree& all, int b, int V) {
   Tree t;
   t.order = all.order + (size_t)b * V;
@@ -411,77 +393,635 @@ __device__ Tree image_tree(const Tree& all, int b, int V) {
   return t;
 }
 
-template <int C>
-__global__ void __launch_bounds__(THREADS)
-filter_fwd_kernel(const float* __restrict__ x_all, Tree all, int V, float* A_all,
-                  float* F_all, float* y_all) {
-  constexpr int CH = C + 1;
-  const int b = blockIdx.x;
-  const Tree t = image_tree(all, b, V);
-  const float* __restrict__ x = x_all + (size_t)b * V * C;
-  float* y = y_all + (size_t)b * V * C;
-  two_pass<CH, float>(
-      t, V, A_all + (size_t)b * V * CH, F_all + (size_t)b * V * CH,
-      [&](int q, int v, float* in) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) in[c] = x[(size_t)v * C + c];
-        in[C] = 1.f;
-      },
-      [&](int q, int v, const float* f) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) y[(size_t)v * C + c] = f[c] / f[C];
-      });
+constexpr int PAD = 256;           // the scratch's positions an image: a multiple of PAD
+constexpr int TILE = 256, TILES = 8;             // the main path's window: 2,048 positions
+constexpr int SMALL_TILE = 16, SMALL_TILES = 4;  // a 64-position window, for the tests
+constexpr int WARPS = 4;           // consumer warps (1, 2 and 4 measured: PERF.md section 6)
+constexpr int CONSUMERS = WARPS * 32;
+constexpr int PAR_THREADS = 256;   // the fully parallel kernels
+constexpr int LEVEL_CAP = 8192;    // level offsets kept in shared memory (else streamed)
+
+__host__ __device__ __forceinline__ int padded(int V) { return (V + PAD - 1) / PAD * PAD; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-template <int C>
-__global__ void __launch_bounds__(THREADS)
-filter_bwd_kernel(const float* __restrict__ g_all, const float* __restrict__ y_all,
-                  const float* __restrict__ A_all, const float* __restrict__ F_all, Tree all,
-                  int V, const float* __restrict__ embed_all, int D,
-                  double* Aa_all, double* Fa_all, double* dd_all, float* dx_all,
-                  float* dembed_all) {
-  constexpr int CH = C + 1, CH2 = 2 * C;
-  const int b = blockIdx.x;
-  const Tree t = image_tree(all, b, V);
-  const float* __restrict__ gout = g_all + (size_t)b * V * C;
-  const float* __restrict__ y = y_all + (size_t)b * V * C;
-  const float* __restrict__ A = A_all + (size_t)b * V * CH;
-  const float* __restrict__ F = F_all + (size_t)b * V * CH;
-  double* Aa = Aa_all + (size_t)b * V * CH2;
-  double* Fa = Fa_all + (size_t)b * V * CH2;
-  float* dx = dx_all + (size_t)b * V * C;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
 
-  // dx = F_{g/z}: the filter's two passes on [g/z, g*y/z]
-  two_pass<CH2, double>(
-      t, V, Aa, Fa,
-      [&](int q, int v, double* in) {
-        const double z = F[(size_t)q * CH + C];
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// bytes (a multiple of 16) from 16-byte aligned global src to shared dst,
+// completing on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// bytes (a multiple of 16) from shared src to 16-byte aligned global dst, as
+// a bulk group of its own
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst), "r"(src),
+               "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// the thread's bulk stores but the newest N have read their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// the thread's bulk stores have all completed
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// level[k] for k = first, first + dir, ...: lane i of the warp holds
+// level[k + dir * i] and the next batch of 32 is in flight behind it; 0 past
+// either end. Every lane of the warp calls next() together.
+struct LevelStream {
+  const int* level;
+  int last, dir, k, idx, cur, nxt;
+
+  __device__ LevelStream(const int* lv, int n_levels, bool up)
+      : level(lv), last(n_levels), dir(up ? -1 : 1), k(up ? n_levels : 0), idx(0) {
+    const int lane = threadIdx.x & 31;
+    cur = load(k + dir * lane);
+    nxt = load(k + dir * (32 + lane));
+  }
+  __device__ int load(int i) const { return i >= 0 && i <= last ? __ldg(level + i) : 0; }
+  __device__ int next() {
+    const int v = __shfl_sync(0xffffffffu, cur, idx);
+    if (++idx == 32) {
+      idx = 0;
+      cur = nxt;
+      k += 32 * dir;
+      nxt = load(k + dir * (32 + (threadIdx.x & 31)));
+    }
+    return v;
+  }
+};
+
+// A row of CH values in device memory: 16-byte moves where the row's size
+// allows (its address then allows them too: rows start at multiples of its
+// size).
+template <int CH, class T>
+__device__ __forceinline__ void ld_row(const T* p, T (&v)[CH]) {
+  constexpr int BYTES = CH * sizeof(T);
+  if constexpr (BYTES % 16 == 0) {
+    uint4 u[BYTES / 16];
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const double gv = gout[(size_t)v * C + c];
-          in[c] = gv / z;
-          in[C + c] = gv * y[(size_t)v * C + c] / z;
+    for (int i = 0; i < BYTES / 16; ++i) u[i] = reinterpret_cast<const uint4*>(p)[i];
+    memcpy(v, u, BYTES);
+  } else {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) v[c] = p[c];
+  }
+}
+
+template <int CH, class T>
+__device__ __forceinline__ void st_row(T* p, const T (&v)[CH]) {
+  constexpr int BYTES = CH * sizeof(T);
+  if constexpr (BYTES % 16 == 0) {
+    uint4 u[BYTES / 16];
+    memcpy(u, v, BYTES);
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i) reinterpret_cast<uint4*>(p)[i] = u[i];
+  } else {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) p[c] = v[c];
+  }
+}
+
+// Shared memory by its 32-bit address: explicit ld.shared / st.shared, kept
+// in program order, so a level's loads all leave before the first use. A
+// load where p is false moves no data and gives zeros (+0.0).
+__device__ __forceinline__ uint32_t lds32(uint32_t a, bool p = true) {
+  uint32_t v = 0;
+  asm volatile("{\n .reg .pred q;\n setp.ne.u32 q, %2, 0;\n @q ld.shared.u32 %0, [%1];\n}"
+               : "+r"(v)
+               : "r"(a), "r"((uint32_t)p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int4 lds128(uint32_t a, bool p = true) {
+  int4 v = make_int4(0, 0, 0, 0);
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.u32 q, %5, 0;\n"
+      " @q ld.shared.v4.s32 {%0, %1, %2, %3}, [%4];\n}"
+      : "+r"(v.x), "+r"(v.y), "+r"(v.z), "+r"(v.w)
+      : "r"(a), "r"((uint32_t)p)
+      : "memory");
+  return v;
+}
+
+template <int CH, class T>
+__device__ __forceinline__ void lds_row(uint32_t a, T (&v)[CH], bool p = true) {
+  constexpr int BYTES = CH * sizeof(T);
+  uint32_t u[BYTES / 4];
+  if constexpr (BYTES % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i) {
+      const int4 w = lds128(a + 16 * i, p);
+      u[4 * i] = w.x;
+      u[4 * i + 1] = w.y;
+      u[4 * i + 2] = w.z;
+      u[4 * i + 3] = w.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BYTES / 4; ++i) u[i] = lds32(a + 4 * i, p);
+  }
+  memcpy(v, u, BYTES);
+}
+
+template <int CH, class T>
+__device__ __forceinline__ void sts_row(uint32_t a, const T (&v)[CH]) {
+  constexpr int BYTES = CH * sizeof(T);
+  uint32_t u[BYTES / 4];
+  memcpy(u, v, BYTES);
+  if constexpr (BYTES % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i)
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(a + 16 * i), "r"(u[4 * i]),
+                   "r"(u[4 * i + 1]), "r"(u[4 * i + 2]), "r"(u[4 * i + 3])
+                   : "memory");
+  } else {
+#pragma unroll
+    for (int i = 0; i < BYTES / 4; ++i)
+      asm volatile("st.shared.u32 [%0], %1;" ::"r"(a + 4 * i), "r"(u[i]) : "memory");
+  }
+}
+
+// Level offsets from shared memory (a copy of the image's, when it fits),
+// in the pass's order; 0 once all n_levels + 1 are read.
+struct SmemLevels {
+  uint32_t at;  // the address of the next offset
+  int step;     // +4 or -4 bytes
+  int left;     // offsets not yet read
+  __device__ SmemLevels(uint32_t base, int n_levels, bool up)
+      : at(base + 4 * (up ? n_levels : 0)), step(up ? -4 : 4), left(n_levels + 1) {}
+  __device__ int next() {
+    const int v = (int)lds32(at, left-- > 0);
+    at += step;
+    return v;
+  }
+};
+
+// One image's two passes. ``A`` is the padded queue-order scratch [Vp, CH]
+// (the pass's input, overwritten by A upward); ``M`` the padded records
+// (w bits, first child, end of children, ppos); ``F`` the padded [Vp, CH]
+// written downward. Warps 0..WARPS-1 compute, warp WARPS loads tiles.
+//
+// In the window (SMEM), position q is in ring row q % W of W = NT * TP, so
+// tile t (positions t*TP ..) in ring slot t % NT. A pass takes its tiles in
+// its own order (pass tile j is tile nt-1-j upward, j downward), and the
+// j-th use of a slot is use j / NT of that slot's barriers (a pair each for
+// the two passes). Without the window every row is read from and written to
+// device memory.
+template <int CH, class T, int TP, int NT>
+struct Passes {
+  static constexpr int W = TP * NT, ROW = CH * sizeof(T);
+  static constexpr int RELEASER = CONSUMERS - 1;  // the thread least often busy in a level
+  uint32_t sdata;   // shared address of the rows [W][CH]
+  uint32_t smeta;   // shared address of the records [W]
+  uint64_t* full;   // [2][NT]: the tile landed
+  uint64_t* empty;  // [2][NT]: the tile's rows left and its slot is free
+  T* A;             // global, this image's padded rows
+  const int4* M;
+  T* F;
+  int nt;
+  bool up;
+  int waited, released;  // the pass's tiles [0, waited) waited on, [0, released) stored
+
+  __device__ static uint32_t row_off(int q) { return (uint32_t)(q & (W - 1)); }
+  __device__ uint32_t row_at(int q) const { return sdata + row_off(q) * ROW; }
+  __device__ uint32_t meta_at(int q) const { return smeta + row_off(q) * 16; }
+  __device__ static int tile(int q) { return (int)((unsigned)q / TP); }  // q >= 0
+  __device__ int tile_of(int j) const { return up ? nt - 1 - j : j; }
+  __device__ int bar(int j) const { return (up ? 0 : NT) + (int)((unsigned)tile_of(j) % NT); }
+
+  // every consumer waits for the pass's tiles [waited, j_end)
+  __device__ void acquire(int j_end) {
+    for (; waited < j_end; ++waited) mbar_wait(&full[bar(waited)], ((unsigned)waited / NT) & 1);
+  }
+
+  // after a level: the pass's tiles [released, j_end) hold final rows (A
+  // upward, F downward) that no later level reads. Each consumer fences its
+  // writes to them (the async proxy reads them next); past the consumers'
+  // barrier one thread sends each tile to device memory by a bulk store and
+  // frees the slot of the tile before it once that tile's store has read
+  // its rows. So one slot stays held: a level with the level it reads may
+  // span NT - 1 tiles (tree_pass_kernel's test).
+  __device__ void level_done(int j_end) {
+    const bool rel = j_end > released;
+    if (rel) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    consumer_sync();
+    if (!rel) return;
+    if (threadIdx.x == RELEASER) {
+      T* out = up ? A : F;
+      for (int j = released; j < j_end; ++j) {
+        const int t = tile_of(j);
+        bulk_store(out + (size_t)t * TP * CH, sdata + (uint32_t)(t % NT) * TP * ROW, TP * ROW);
+        bulk_wait_read<1>();
+        if (j > 0) mbar_arrive(&empty[bar(j - 1)]);
+      }
+    }
+    released = j_end;
+  }
+
+  __device__ static void consumer_sync() {
+    asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
+  }
+
+  // A row, a child's weight and a child's row, from the window or device
+  // memory; a missing child's are zeros
+  __device__ void load_row(int q, T (&v)[CH], bool smem) const {
+    if (smem)
+      lds_row<CH>(row_at(q), v);
+    else
+      ld_row<CH>(A + (size_t)q * CH, v);
+  }
+
+  __device__ T child_w(bool smem, bool has, int r) const {
+    return T(__int_as_float(smem ? (int)lds32(meta_at(r), has) : (has ? M[r].x : 0)));
+  }
+
+  __device__ void child_row(bool smem, bool has, int r, T (&v)[CH]) const {
+    if (smem) {
+      lds_row<CH>(row_at(r), v, has);
+    } else if (has) {
+      ld_row<CH>(A + (size_t)r * CH, v);
+    } else {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) v[c] = T(0);
+    }
+  }
+
+  // acc += w * a over the children, last to first, as fused multiply-adds
+  // (a missing child's w and a are +0, which adds an exact zero)
+  __device__ static void pull(T (&acc)[CH], const T (&wk)[MAX_CHILDREN],
+                              const T (&ak)[MAX_CHILDREN][CH]) {
+#pragma unroll
+    for (int k = 0; k < MAX_CHILDREN; ++k) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) acc[c] = fma(wk[k], ak[k][c], acc[c]);
+    }
+  }
+
+  // F = A (1 - w^2) + w F_parent, as one rounding order everywhere
+  __device__ static void push(T (&f)[CH], const T (&a)[CH], T w, const T (&fp)[CH]) {
+    const T k = fma(-w, w, T(1));
+#pragma unroll
+    for (int c = 0; c < CH; ++c) f[c] = fma(w, fp[c], a[c] * k);
+  }
+
+  // upward over positions [s, e): every child's weight and row is loaded
+  // before the first is summed
+  template <bool SMEM>
+  __device__ void up_level(int s, int e) {
+    for (int q = s + (int)threadIdx.x; q < e; q += CONSUMERS) {
+      const int4 m = SMEM ? lds128(meta_at(q)) : M[q];
+      T acc[CH], wk[MAX_CHILDREN], ak[MAX_CHILDREN][CH];
+      load_row(q, acc, SMEM);
+#pragma unroll
+      for (int k = 0; k < MAX_CHILDREN; ++k) {
+        const int r = m.z - 1 - k;
+        wk[k] = child_w(SMEM, r >= m.y, r);
+        child_row(SMEM, r >= m.y, r, ak[k]);
+      }
+      pull(acc, wk, ak);
+      if (SMEM)
+        sts_row<CH>(row_at(q), acc);
+      else
+        st_row<CH>(A + (size_t)q * CH, acc);
+    }
+  }
+
+  // downward over positions [s, e)
+  template <bool SMEM>
+  __device__ void down_level(int s, int e) {
+    for (int q = s + (int)threadIdx.x; q < e; q += CONSUMERS) {
+      const int4 m = SMEM ? lds128(meta_at(q)) : M[q];
+      T a[CH], f[CH], fp[CH];
+      load_row(q, a, SMEM);
+      if (SMEM)
+        lds_row<CH>(row_at(m.w), fp);
+      else
+        ld_row<CH>(F + (size_t)m.w * CH, fp);
+      if (q == 0) {
+#pragma unroll
+        for (int c = 0; c < CH; ++c) f[c] = a[c];  // root: w = 0
+      } else {
+        push(f, a, T(__int_as_float(m.x)), fp);
+      }
+      if (SMEM)
+        sts_row<CH>(row_at(q), f);
+      else
+        st_row<CH>(F + (size_t)q * CH, f);
+    }
+  }
+
+  // deepest level first; level L spans [s, e) and reads its children in the
+  // level after it, whose tiles it waited for. The next level's offset is
+  // read before this level's barrier.
+  template <bool SMEM, class Levels>
+  __device__ void upward(Levels ls, int n_levels) {
+    up = true;
+    waited = released = 0;
+    int e = ls.next();  // level[n_levels] == V
+    int s = ls.next();
+    for (int L = n_levels - 1; L >= 0; --L) {
+      if (SMEM) acquire(nt - tile(s));
+      up_level<SMEM>(s, e);
+      const int s_next = ls.next();
+      if (SMEM)
+        level_done(L > 0 ? nt - 1 - tile(e - 1) : nt);
+      else
+        consumer_sync();
+      e = s;
+      s = s_next;
+    }
+  }
+
+  // root first; level L spans [s, e) and reads its parents in the level
+  // before it
+  template <bool SMEM, class Levels>
+  __device__ void downward(Levels ls, int n_levels) {
+    up = false;
+    waited = released = 0;
+    int s = ls.next();  // level[0] == 0
+    int e = ls.next();
+    for (int L = 0; L < n_levels; ++L) {
+      if (SMEM) acquire(tile(e - 1) + 1);
+      down_level<SMEM>(s, e);
+      const int e_next = ls.next();
+      if (SMEM)
+        level_done(L + 1 < n_levels ? tile(s) : nt);
+      else
+        consumer_sync();
+      s = e;
+      e = e_next;
+    }
+  }
+
+  // the releaser's stores have landed (device memory is read next)
+  __device__ void flush() const {
+    if (threadIdx.x == RELEASER) bulk_wait_all();
+  }
+};
+
+template <int CH, class T, int TP, int NT>
+constexpr size_t pass_smem_bytes() {
+  return (size_t)NT * TP * (CH * sizeof(T) + sizeof(int4)) + 4 * NT * sizeof(uint64_t) +
+         LEVEL_CAP * sizeof(int);
+}
+
+// K3b / K4b: one block an image (WARPS consumer warps and one producer).
+// data [B, Vp, CH] in, A out in place; meta [B, Vp]; F [B, Vp, CH] out;
+// stamps [B, 3] (or NULL): %globaltimer at the start, between the passes and
+// at the end.
+//
+// An image takes the window when every level, with the level it reads,
+// spans at most NT - 1 tiles; else (a level wider than the window) both its
+// passes read and write device memory, in this kernel.
+template <int CH, class T, int TP, int NT>
+__global__ void __launch_bounds__((WARPS + 1) * 32)
+tree_pass_kernel(T* data, const int4* __restrict__ meta, const int* __restrict__ level_all,
+                 const int* __restrict__ nlev_all, int V, T* F_all,
+                 unsigned long long* stamps) {
+  static_assert((TP & (TP - 1)) == 0 && (NT & (NT - 1)) == 0 && PAD % TP == 0 && NT >= 2,
+                "tiles and slots are powers of two, tiles divide the padding");
+  static_assert((TP * CH * sizeof(T)) % 16 == 0, "tiles must be 16-byte aligned");
+  extern __shared__ __align__(16) unsigned char smem[];
+  using P = Passes<CH, T, TP, NT>;
+  constexpr size_t rows = (size_t)NT * TP * CH * sizeof(T), metas = (size_t)NT * TP * sizeof(int4);
+  P p;
+  p.sdata = smem_addr(smem);
+  p.smeta = p.sdata + rows;
+  p.full = reinterpret_cast<uint64_t*>(smem + rows + metas);
+  p.empty = p.full + 2 * NT;
+  int* slevel = reinterpret_cast<int*>(p.empty + 2 * NT);
+  const int b = blockIdx.x, Vp = padded(V);
+  p.A = data + (size_t)b * Vp * CH;
+  p.M = meta + (size_t)b * Vp;
+  p.F = F_all + (size_t)b * Vp * CH;
+  p.nt = (V + TP - 1) / TP;
+  const int* level = level_all + (size_t)b * (V + 1);
+  const int n_levels = nlev_all[b];
+  const bool levels_in_smem = n_levels < LEVEL_CAP;  // n_levels + 1 offsets
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * NT; ++i) {
+      mbar_init(&p.full[i], 1);
+      mbar_init(&p.empty[i], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (stamps) stamps[b * 3] = global_ns();
+  }
+  int wide = 0;
+  for (int i = threadIdx.x; i <= n_levels; i += blockDim.x) {
+    if (levels_in_smem) slevel[i] = level[i];
+    if (i < n_levels)  // level i with the next: tiles tile(level[i]) .. tile(end - 1)
+      wide |= (level[min(i + 2, n_levels)] - 1) / TP - level[i] / TP >= NT - 1;
+  }
+  const bool any_wide = __syncthreads_or(wide);
+  const bool window = n_levels > 0 && !any_wide;  // n_levels 0: no tree, nothing to do
+
+  if (threadIdx.x >= CONSUMERS) {
+    if (!window) return;
+    // the producer: the upward pass's tiles from the last to the first, then
+    // (once the upward pass has stored all of A) the downward pass's in order
+    constexpr uint32_t bytes = TP * CH * sizeof(T) + TP * sizeof(int4);
+    for (int pass = 0; pass < 2; ++pass) {
+      p.up = pass == 0;
+      if (threadIdx.x == CONSUMERS) {
+        for (int j = 0; j < p.nt; ++j) {
+          const int t = p.tile_of(j), sl = t % NT, bi = p.bar(j);
+          if (j >= NT) mbar_wait(&p.empty[bi], (j / NT - 1) & 1);
+          mbar_expect_tx(&p.full[bi], bytes);
+          bulk_load(smem + (size_t)sl * TP * CH * sizeof(T), p.A + (size_t)t * TP * CH,
+                    TP * CH * sizeof(T), &p.full[bi]);
+          bulk_load(smem + rows + (size_t)sl * TP * sizeof(int4), p.M + (size_t)t * TP,
+                    TP * sizeof(int4), &p.full[bi]);
         }
-      },
-      [&](int q, int v, const double* f) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) dx[(size_t)v * C + c] = (float)f[c];
-      });
-  if (embed_all == nullptr) return;  // low tree: no gradient to its guide
+      }
+      __syncwarp();
+      if (pass == 0) __syncthreads();
+    }
+    return;
+  }
+  const uint32_t lv = smem_addr(slevel);
+  if (window) {
+    if (levels_in_smem)
+      p.template upward<true>(SmemLevels(lv, n_levels, true), n_levels);
+    else
+      p.template upward<true>(LevelStream(level, n_levels, true), n_levels);
+    p.flush();
+    // A (device memory) is read next by the producer's bulk loads
+    asm volatile("fence.proxy.async;" ::: "memory");
+    __syncthreads();
+  } else {
+    if (levels_in_smem)
+      p.template upward<false>(SmemLevels(lv, n_levels, true), n_levels);
+    else
+      p.template upward<false>(LevelStream(level, n_levels, true), n_levels);
+  }
+  if (stamps && threadIdx.x == 0) stamps[b * 3 + 1] = global_ns();
+  if (window) {
+    if (levels_in_smem)
+      p.template downward<true>(SmemLevels(lv, n_levels, false), n_levels);
+    else
+      p.template downward<true>(LevelStream(level, n_levels, false), n_levels);
+    p.flush();
+  } else {
+    if (levels_in_smem)
+      p.template downward<false>(SmemLevels(lv, n_levels, false), n_levels);
+    else
+      p.template downward<false>(LevelStream(level, n_levels, false), n_levels);
+  }
+  if (stamps && threadIdx.x == 0) stamps[b * 3 + 2] = global_ns();
+}
 
-  // dL/d dist of each edge (vertex at q to its parent), crossing pairs
-  const float* __restrict__ embed = embed_all + (size_t)b * V * D;
-  double* dd = dd_all + (size_t)b * V;
-  float* dembed = dembed_all + (size_t)b * V * D;
-  for (int q = threadIdx.x; q < V; q += blockDim.x) {
+// a position's record in the padded scratch: (w bits, first child, end of
+// children, ppos)
+__device__ __forceinline__ int4 position_record(const Tree& t, int q) {
+  return make_int4(__float_as_int(t.w[q]), t.cptr[q], t.cptr[q + 1], t.ppos[q]);
+}
+
+// K3a: [x[order[q]], 1] and the records in queue order
+template <int C>
+__global__ void __launch_bounds__(PAR_THREADS)
+fwd_gather_kernel(const float* __restrict__ x_all, Tree all, int B, int V, float* data,
+                  int4* meta) {
+  constexpr int CH = C + 1;
+  const int Vp = padded(V);
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < (size_t)B * V;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int b = (int)(i / V), q = (int)(i - (size_t)b * V);
+    const Tree t = image_tree(all, b, V);
+    const int v = t.order[q];
+    const float* xv = x_all + ((size_t)b * V + v) * C;
+    float* d = data + ((size_t)b * Vp + q) * CH;
+#pragma unroll
+    for (int c = 0; c < C; ++c) d[c] = xv[c];
+    d[C] = 1.f;
+    meta[(size_t)b * Vp + q] = position_record(t, q);
+  }
+}
+
+// K3c: y = F_x / F_1 in vertex order; A and F out of the padded scratch
+template <int C>
+__global__ void __launch_bounds__(PAR_THREADS)
+fwd_scatter_kernel(const float* __restrict__ data, const float* __restrict__ fdata, Tree all,
+                   int B, int V, float* A, float* F, float* y) {
+  constexpr int CH = C + 1;
+  const int Vp = padded(V);
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < (size_t)B * V;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int b = (int)(i / V), q = (int)(i - (size_t)b * V);
+    const int v = all.order[i];
+    const size_t pq = ((size_t)b * Vp + q) * CH;
+    const float* f = fdata + pq;
+    float* yv = y + ((size_t)b * V + v) * C;
+#pragma unroll
+    for (int c = 0; c < C; ++c) yv[c] = f[c] / f[C];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      A[i * CH + c] = data[pq + c];
+      F[i * CH + c] = f[c];
+    }
+  }
+}
+
+// K4a: [g/z, g*y/z] in double, z = F_1, in queue order; the records
+template <int C>
+__global__ void __launch_bounds__(PAR_THREADS)
+bwd_gather_kernel(const float* __restrict__ g_all, const float* __restrict__ y_all,
+                  const float* __restrict__ F_all, Tree all, int B, int V, double* data,
+                  int4* meta) {
+  constexpr int CH = C + 1, CH2 = 2 * C;
+  const int Vp = padded(V);
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < (size_t)B * V;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int b = (int)(i / V), q = (int)(i - (size_t)b * V);
+    const Tree t = image_tree(all, b, V);
+    const int v = t.order[q];
+    const double z = F_all[i * CH + C];
+    const float* gv = g_all + ((size_t)b * V + v) * C;
+    const float* yv = y_all + ((size_t)b * V + v) * C;
+    double* d = data + ((size_t)b * Vp + q) * CH2;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const double gc = gv[c];
+      d[c] = gc / z;
+      d[C + c] = gc * yv[c] / z;
+    }
+    meta[(size_t)b * Vp + q] = position_record(t, q);
+  }
+}
+
+// K4c: dx = F_{g/z} back to vertex order; on a high tree (dd non-NULL) each
+// position's dL/d dist of its edge to its parent, by crossing pairs
+template <int C>
+__global__ void __launch_bounds__(PAR_THREADS)
+bwd_scatter_kernel(const double* __restrict__ Aa_all, const double* __restrict__ Fa_all,
+                   const float* __restrict__ A_all, const float* __restrict__ F_all, Tree all,
+                   int B, int V, float* dx, double* dd) {
+  constexpr int CH = C + 1, CH2 = 2 * C;
+  const int Vp = padded(V);
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < (size_t)B * V;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int b = (int)(i / V), q = (int)(i - (size_t)b * V);
+    const double* Fav = Fa_all + ((size_t)b * Vp + q) * CH2;
+    float* dxv = dx + ((size_t)b * V + all.order[i]) * C;
+#pragma unroll
+    for (int c = 0; c < C; ++c) dxv[c] = (float)Fav[c];
+    if (dd == nullptr) continue;
     double out = 0.0;
     if (q > 0) {
-      const int pq = t.ppos[q];
-      const double wv = t.w[q];
-      const float* Av = A + (size_t)q * CH;
-      const float* Fp = F + (size_t)pq * CH;
-      const double* Aav = Aa + (size_t)q * CH2;
-      const double* Fap = Fa + (size_t)pq * CH2;
+      const int pp = all.ppos[i];
+      const double wv = all.w[i];
+      const float* Av = A_all + i * CH;
+      const float* Fp = F_all + ((size_t)b * V + pp) * CH;
+      const double* Aav = Aa_all + ((size_t)b * Vp + q) * CH2;
+      const double* Fap = Fa_all + ((size_t)b * Vp + pp) * CH2;
       double s1 = 0.0, s2 = 0.0;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
@@ -490,11 +1030,21 @@ filter_bwd_kernel(const float* __restrict__ g_all, const float* __restrict__ y_a
       }
       out = (s1 - s2) * -wv;  // a high tree's w = exp(-dist): dw/d dist = -w
     }
-    dd[q] = out;
+    dd[i] = out;
   }
-  __syncthreads();
-  // d embed(v) = 2 dd(v) (e_v - e_parent) - sum over children u of 2 dd(u) (e_u - e_v)
-  for (int q = threadIdx.x; q < V; q += blockDim.x) {
+}
+
+// K4d: d embed(v) = 2 dd(v) (e_v - e_parent) - sum over children u of
+// 2 dd(u) (e_u - e_v)
+__global__ void __launch_bounds__(PAR_THREADS)
+dembed_kernel(const double* __restrict__ dd_all, const float* __restrict__ embed_all, int D,
+              Tree all, int B, int V, float* dembed_all) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < (size_t)B * V;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int b = (int)(i / V), q = (int)(i - (size_t)b * V);
+    const Tree t = image_tree(all, b, V);
+    const float* embed = embed_all + (size_t)b * V * D;
+    const double* dd = dd_all + (size_t)b * V;
     const int v = t.order[q];
     const float* ev = embed + (size_t)v * D;
     double acc[MAX_EMBED];
@@ -509,8 +1059,8 @@ filter_bwd_kernel(const float* __restrict__ g_all, const float* __restrict__ y_a
     }
     const int c0 = t.cptr[q], c1 = t.cptr[q + 1];
 #pragma unroll
-    for (int i = 0; i < MAX_CHILDREN; ++i) {
-      const int r = c0 + i;
+    for (int j = 0; j < MAX_CHILDREN; ++j) {
+      const int r = c0 + j;
       if (r >= c1) break;
       const float* eu = embed + (size_t)t.order[r] * D;
       const double k = dd[r] * 2.0;
@@ -518,9 +1068,10 @@ filter_bwd_kernel(const float* __restrict__ g_all, const float* __restrict__ y_a
       for (int d = 0; d < MAX_EMBED; ++d)
         if (d < D) acc[d] -= k * ((double)eu[d] - ev[d]);
     }
+    float* de = dembed_all + ((size_t)b * V + v) * D;
 #pragma unroll
     for (int d = 0; d < MAX_EMBED; ++d)
-      if (d < D) dembed[(size_t)v * D + d] = (float)acc[d];
+      if (d < D) de[d] = (float)acc[d];
   }
 }
 
@@ -535,6 +1086,69 @@ Tree make_tree(const int* order, const int* parent, const int* ppos, const int* 
   t.nlev = nlev;
   t.w = w;
   return t;
+}
+
+int par_blocks(int B, int V) {
+  const long long n = ((long long)B * V + PAR_THREADS - 1) / PAR_THREADS;
+  return (int)(n < 65535 * 8 ? n : 65535 * 8);
+}
+
+template <int CH, class T, int TP, int NT>
+cudaError_t launch_passes(T* data, const int4* meta, const Tree& t, int B, int V, T* F,
+                          unsigned long long* stamps, cudaStream_t s) {
+  auto kernel = tree_pass_kernel<CH, T, TP, NT>;
+  constexpr size_t bytes = pass_smem_bytes<CH, T, TP, NT>();
+  static_assert(bytes <= 232448, "the window exceeds a block's shared memory");
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, (WARPS + 1) * 32, bytes, s>>>(data, meta, t.level, t.nlev, V, F, stamps);
+  return cudaGetLastError();
+}
+
+// the passes' instance by its window's positions: the main path's, or the
+// tests' small one
+template <int CH, class T>
+cudaError_t passes(int window, T* data, const int4* meta, const Tree& t, int B, int V, T* F,
+                   unsigned long long* stamps, cudaStream_t s) {
+  if (window == TILE * TILES)
+    return launch_passes<CH, T, TILE, TILES>(data, meta, t, B, V, F, stamps, s);
+  if (window == SMALL_TILE * SMALL_TILES)
+    return launch_passes<CH, T, SMALL_TILE, SMALL_TILES>(data, meta, t, B, V, F, stamps, s);
+  return cudaErrorInvalidValue;
+}
+
+template <int C>
+int filter_fwd(const float* x, const Tree& t, float* A, float* F, float* y, float* data,
+               float* fdata, int4* meta, unsigned long long* stamps, int B, int V, int window,
+               cudaStream_t s) {
+  const int blocks = par_blocks(B, V);
+  fwd_gather_kernel<C><<<blocks, PAR_THREADS, 0, s>>>(x, t, B, V, data, meta);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = passes<C + 1, float>(window, data, meta, t, B, V, fdata, stamps, s);
+  if (err != cudaSuccess) return (int)err;
+  fwd_scatter_kernel<C><<<blocks, PAR_THREADS, 0, s>>>(data, fdata, t, B, V, A, F, y);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int filter_bwd(const float* g, const float* y, const float* A, const float* F, const Tree& t,
+               const float* embed, int D, double* Aa, double* Fa, double* dd, int4* meta,
+               float* dx, float* dembed, unsigned long long* stamps, int B, int V, int window,
+               cudaStream_t s) {
+  const int blocks = par_blocks(B, V);
+  bwd_gather_kernel<C><<<blocks, PAR_THREADS, 0, s>>>(g, y, F, t, B, V, Aa, meta);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = passes<2 * C, double>(window, Aa, meta, t, B, V, Fa, stamps, s);
+  if (err != cudaSuccess) return (int)err;
+  bwd_scatter_kernel<C><<<blocks, PAR_THREADS, 0, s>>>(Aa, Fa, A, F, t, B, V, dx,
+                                                      embed != nullptr ? dd : nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || embed == nullptr) return (int)err;
+  dembed_kernel<<<blocks, PAR_THREADS, 0, s>>>(dd, embed, D, t, B, V, dembed);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -563,46 +1177,60 @@ int tree_root(const unsigned char* sel, const float* embed, int D, int n, int H,
   return (int)cudaGetLastError();
 }
 
+// Positions an image of the filters' padded scratch (a multiple of 256).
+int tree_filter_padded(int V) { return padded(V); }
+
+// The passes' consumer warps.
+int tree_filter_consumer_warps() { return WARPS; }
+
 // K3. x [B, V, C] fp32 (vertex order); tree arrays of these B images;
-// outputs A, F [B, V, C + 1] (queue order), y [B, V, C] (vertex order).
+// outputs A, F [B, V, C + 1] (queue order), y [B, V, C] (vertex order);
+// scratch data, fdata [B, Vp, C + 1] fp32 and meta [B, Vp, 4] int32 (Vp =
+// tree_filter_padded(V)); stamps [B, 3] uint64 or NULL; the passes' window
+// (positions).
 int tree_filter_fwd(const float* x, const int* order, const int* parent, const int* ppos,
                     const int* cptr, const int* level, const int* nlev, const float* w,
-                    float* A, float* F, float* y, int B, int V, int C, void* stream) {
+                    float* A, float* F, float* y, float* data, float* fdata, int* meta,
+                    unsigned long long* stamps, int B, int V, int C, int window, void* stream) {
+  if (B < 1 || V < 1) return (int)cudaErrorInvalidValue;
   const Tree t = make_tree(order, parent, ppos, cptr, level, nlev, w);
   cudaStream_t s = (cudaStream_t)stream;
+  int4* m = reinterpret_cast<int4*>(meta);
   switch (C) {
-    case 1: filter_fwd_kernel<1><<<B, THREADS, 0, s>>>(x, t, V, A, F, y); break;
-    case 2: filter_fwd_kernel<2><<<B, THREADS, 0, s>>>(x, t, V, A, F, y); break;
-    case 3: filter_fwd_kernel<3><<<B, THREADS, 0, s>>>(x, t, V, A, F, y); break;
-    case 4: filter_fwd_kernel<4><<<B, THREADS, 0, s>>>(x, t, V, A, F, y); break;
+    case 1: return filter_fwd<1>(x, t, A, F, y, data, fdata, m, stamps, B, V, window, s);
+    case 2: return filter_fwd<2>(x, t, A, F, y, data, fdata, m, stamps, B, V, window, s);
+    case 3: return filter_fwd<3>(x, t, A, F, y, data, fdata, m, stamps, B, V, window, s);
+    case 4: return filter_fwd<4>(x, t, A, F, y, data, fdata, m, stamps, B, V, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // K4. g, y [B, V, C] (vertex order); A, F [B, V, C + 1] from K3; embed
-// [B, V, D] or NULL (low tree); float64 scratch Aa, Fa [B, V, 2C], dd [B, V];
-// outputs dx [B, V, C], dembed [B, V, D] (when embed).
+// [B, V, D] or NULL (low tree); float64 scratch Aa, Fa [B, Vp, 2C], dd
+// [B, V]; meta [B, Vp, 4] int32; outputs dx [B, V, C], dembed [B, V, D]
+// (when embed); stamps and the window as K3's.
 int tree_filter_bwd(const float* g, const float* y, const float* A, const float* F,
                     const int* order, const int* parent, const int* ppos, const int* cptr,
                     const int* level, const int* nlev, const float* w, const float* embed,
-                    int D, double* Aa, double* Fa, double* dd, float* dx,
-                    float* dembed, int B, int V, int C, void* stream) {
+                    int D, double* Aa, double* Fa, double* dd, int* meta, float* dx,
+                    float* dembed, unsigned long long* stamps, int B, int V, int C, int window,
+                    void* stream) {
+  if (B < 1 || V < 1) return (int)cudaErrorInvalidValue;
   if (embed != nullptr && (D < 1 || D > MAX_EMBED)) return (int)cudaErrorInvalidValue;
   const Tree t = make_tree(order, parent, ppos, cptr, level, nlev, w);
   cudaStream_t s = (cudaStream_t)stream;
-#define FEDICRA_TREE_BWD(CC)                                                              \
-  filter_bwd_kernel<CC><<<B, THREADS, 0, s>>>(g, y, A, F, t, V, embed, D, Aa, Fa, \
-                                              dd, dx, dembed)
+  int4* m = reinterpret_cast<int4*>(meta);
   switch (C) {
-    case 1: FEDICRA_TREE_BWD(1); break;
-    case 2: FEDICRA_TREE_BWD(2); break;
-    case 3: FEDICRA_TREE_BWD(3); break;
-    case 4: FEDICRA_TREE_BWD(4); break;
+    case 1: return filter_bwd<1>(g, y, A, F, t, embed, D, Aa, Fa, dd, m, dx, dembed, stamps, B, V,
+                                 window, s);
+    case 2: return filter_bwd<2>(g, y, A, F, t, embed, D, Aa, Fa, dd, m, dx, dembed, stamps, B, V,
+                                 window, s);
+    case 3: return filter_bwd<3>(g, y, A, F, t, embed, D, Aa, Fa, dd, m, dx, dembed, stamps, B, V,
+                                 window, s);
+    case 4: return filter_bwd<4>(g, y, A, F, t, embed, D, Aa, Fa, dd, m, dx, dembed, stamps, B, V,
+                                 window, s);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef FEDICRA_TREE_BWD
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -30,8 +30,9 @@ keyword ``host_offload``:
 
 ``host_offload=None`` (the default, as JAX's auto policy) takes the native
 route on CUDA tensors and the plain route on CPU tensors; ``False`` takes
-the plain route anywhere; ``True`` takes the native route and raises on
-CPU tensors (the port has no host C++ for the chain).
+the plain route anywhere; ``True`` takes the native route anywhere, as in
+JAX: on CPU tensors ``ops/tree_filter_cuda.py`` runs the kernels' plain
+twins (the same MST, BFS queue and two passes, in PyTorch ops).
 """
 
 from __future__ import annotations
@@ -134,14 +135,11 @@ def filter_chain(prob, low, highs, *, sigma: float, recursive: bool, native: boo
 
 
 def _use_host_offload(host_offload: Optional[bool], device: torch.device) -> bool:
-    """JAX's auto policy: the native route where it runs on the device (on
-    this port, CUDA tensors), the plain route elsewhere."""
+    """JAX's policy: None takes the native route where it runs on the device
+    (on this port, CUDA tensors) and the plain route elsewhere; True and
+    False are honoured on any device."""
     if host_offload is None:
         return device.type == "cuda"
-    if host_offload and device.type != "cuda":
-        raise ValueError(
-            f"host_offload=True needs CUDA tensors, got {device}: the port's native tree route "
-            "is CUDA kernels; CPU tensors take host_offload=None or False (the plain route)")
     return bool(host_offload)
 
 

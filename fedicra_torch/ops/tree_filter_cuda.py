@@ -21,10 +21,21 @@ bound with ctypes):
   float64 and rounds dx and d embed once: on the last tree of a chain d
   embed is ~1e-3 of the terms it is the difference of.
 
+K3 and K4 are each a few CUDA kernels: a fully parallel gather into queue
+order, the two passes (one block an image streaming the queue through a
+window of shared memory, tiles in by TMA loads and out by TMA stores, its
+consumer warps meeting at a named barrier a level), and fully parallel
+kernels back to vertex order (K4: with the edge gradient and d embed). The
+passes' instance is chosen by ``window`` (positions held in shared memory:
+``WINDOW``, or ``SMALL_WINDOW``, which the tests use to make levels wider
+than the window); ``stamps`` takes each block's ``%globaltimer`` around its
+passes.
+
 Each wrapper takes its plain PyTorch twin for CPU tensors and launches its
 kernel for CUDA tensors (or raises; there is no fallback). ``TreeFilter`` is
 the filter's ``autograd.Function``: it saves the forward's A and F, where
-the native code recomputes them. ``launches`` counts kernel launches.
+the native code recomputes them. ``launches`` counts wrapper calls that
+launched, one each.
 """
 
 from __future__ import annotations
@@ -42,6 +53,9 @@ from .mst import boruvka_mst, grid_edges
 MAX_CLASSES = 4  # the filter kernels are instantiated for C = 1..4
 MAX_EMBED = 8
 MAX_CHILDREN = 4  # the root's; every other vertex has at most 3
+# the passes' windows built by csrc/tree_filter.cu (TILE x TILES, SMALL_TILE x SMALL_TILES)
+WINDOW = 2048
+SMALL_WINDOW = 64
 
 launches = {"tree_mst": 0, "tree_root": 0, "tree_fwd": 0, "tree_bwd": 0}
 
@@ -302,9 +316,12 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tree_mst.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.tree_root.argtypes = [p, p, i, i, i, i, i, f, p, p, p, p, p, p, p, p]
-    lib.tree_filter_fwd.argtypes = [p] * 11 + [i, i, i, p]
-    lib.tree_filter_bwd.argtypes = [p] * 12 + [i] + [p] * 5 + [i, i, i, p]
-    for fn in (lib.tree_mst, lib.tree_root, lib.tree_filter_fwd, lib.tree_filter_bwd):
+    lib.tree_filter_fwd.argtypes = [p] * 15 + [i] * 4 + [p]
+    lib.tree_filter_bwd.argtypes = [p] * 12 + [i] + [p] * 7 + [i] * 4 + [p]
+    lib.tree_filter_padded.argtypes = [i]
+    lib.tree_filter_consumer_warps.argtypes = []
+    for fn in (lib.tree_mst, lib.tree_root, lib.tree_filter_fwd, lib.tree_filter_bwd,
+               lib.tree_filter_padded, lib.tree_filter_consumer_warps):
         fn.restype = i
     return lib
 
@@ -387,24 +404,56 @@ def _tree_ptrs(tree: BFSTree):
     return [t.data_ptr() for t in tree]
 
 
-def tree_filter_fwd_cuda(x: torch.Tensor, tree: BFSTree):
+def _check_passes(window: int, stamps: Optional[torch.Tensor], B: int, device) -> None:
+    """The passes' instance exists; ``stamps`` (optional) is int64 [B, 3] on
+    the tensors' card: %globaltimer ns at a block's start, between its
+    passes and at its end."""
+    if window not in (WINDOW, SMALL_WINDOW):
+        raise ValueError(f"no passes instance with a {window}-position window: "
+                         f"{WINDOW} or {SMALL_WINDOW}")
+    if stamps is not None:
+        _check("stamps", stamps, torch.int64, (B, 3))
+        if stamps.device != device:
+            raise ValueError(f"stamps on {stamps.device}, tensors on {device}")
+
+
+def _padded(V: int) -> int:
+    """Positions an image of the filters' padded scratch."""
+    return _lib().tree_filter_padded(V)
+
+
+def consumer_warps() -> int:
+    """The passes kernel's consumer warps (built into csrc/tree_filter.cu)."""
+    return _lib().tree_filter_consumer_warps()
+
+
+def tree_filter_fwd_cuda(x: torch.Tensor, tree: BFSTree, *, window: int = WINDOW,
+                         stamps: Optional[torch.Tensor] = None):
     """K3: (A, F, y) for fp32 x [B, V, C] (vertex order) over ``tree``."""
     B, V, C = x.shape if x.ndim == 3 else (0, 0, 0)
     _check("x", x, torch.float32, (B, V, C))
     if not 1 <= C <= MAX_CLASSES:
         raise ValueError(f"kernel takes 1..{MAX_CLASSES} channels, got {C}")
     _check_tree(tree, B, V, x.device)
+    _check_passes(window, stamps, B, x.device)
     A = torch.empty((B, V, C + 1), dtype=torch.float32, device=x.device)
     F = torch.empty_like(A)
     y = torch.empty_like(x)
-    err = _lib().tree_filter_fwd(x.data_ptr(), *_tree_ptrs(tree), A.data_ptr(), F.data_ptr(),
-                                 y.data_ptr(), B, V, C, _stream(x))
+    Vp = _padded(V)
+    data = torch.empty((B, Vp, C + 1), dtype=torch.float32, device=x.device)
+    fdata = torch.empty_like(data)
+    meta = torch.empty((B, Vp, 4), dtype=torch.int32, device=x.device)
+    err = _lib().tree_filter_fwd(
+        x.data_ptr(), *_tree_ptrs(tree), A.data_ptr(), F.data_ptr(), y.data_ptr(),
+        data.data_ptr(), fdata.data_ptr(), meta.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), B, V, C, window, _stream(x))
     _raise_on(err, "tree_filter_fwd")
     launches["tree_fwd"] += 1
     return A, F, y
 
 
-def tree_filter_bwd_cuda(g, y, A, F, tree: BFSTree, embed: Optional[torch.Tensor]):
+def tree_filter_bwd_cuda(g, y, A, F, tree: BFSTree, embed: Optional[torch.Tensor], *,
+                         window: int = WINDOW, stamps: Optional[torch.Tensor] = None):
     """K4: (dx, d embed) from fp32 dL/dy ``g`` [B, V, C]; d embed is None when
     ``embed`` is (the low tree)."""
     B, V, C = g.shape if g.ndim == 3 else (0, 0, 0)
@@ -415,6 +464,7 @@ def tree_filter_bwd_cuda(g, y, A, F, tree: BFSTree, embed: Optional[torch.Tensor
     if not 1 <= C <= MAX_CLASSES:
         raise ValueError(f"kernel takes 1..{MAX_CLASSES} channels, got {C}")
     _check_tree(tree, B, V, g.device)
+    _check_passes(window, stamps, B, g.device)
     D = 0
     if embed is not None:
         D = embed.shape[-1] if embed.ndim == 3 else 0
@@ -422,16 +472,17 @@ def tree_filter_bwd_cuda(g, y, A, F, tree: BFSTree, embed: Optional[torch.Tensor
         if not 1 <= D <= MAX_EMBED:
             raise ValueError(f"kernel takes 1..{MAX_EMBED} embedding channels, got {D}")
     dev = g.device
-    Aa = torch.empty((B, V, 2 * C), dtype=torch.float64, device=dev)
+    Aa = torch.empty((B, _padded(V), 2 * C), dtype=torch.float64, device=dev)
     Fa = torch.empty_like(Aa)
+    meta = torch.empty((B, Aa.shape[1], 4), dtype=torch.int32, device=dev)
     dx = torch.empty_like(g)
     dd = torch.empty((B, V), dtype=torch.float64, device=dev) if embed is not None else None
     dembed = torch.empty_like(embed) if embed is not None else None
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _lib().tree_filter_bwd(
         g.data_ptr(), y.data_ptr(), A.data_ptr(), F.data_ptr(), *_tree_ptrs(tree),
-        ptr(embed), D, Aa.data_ptr(), Fa.data_ptr(), ptr(dd), dx.data_ptr(),
-        ptr(dembed), B, V, C, _stream(g))
+        ptr(embed), D, Aa.data_ptr(), Fa.data_ptr(), ptr(dd), meta.data_ptr(), dx.data_ptr(),
+        ptr(dembed), ptr(stamps), B, V, C, window, _stream(g))
     _raise_on(err, "tree_filter_bwd")
     launches["tree_bwd"] += 1
     return dx, dembed

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import confident_logits, smooth_images
+from chip_smoke import confident_logits, serpentine_weights, smooth_images
 from fedicra_torch.losses.gated_crf import gated_crf_features
 from fedicra_torch.ops import gated_crf_cuda, gaussian_filter_cuda, tree_filter_cuda
 
@@ -325,10 +325,16 @@ def test_tree_kernels_match_plain_twins(cuda_device, b, h, w, c):
     sel = tree_filter_cuda.tree_mst(weights, h, w)
     assert torch.equal(sel, tree_filter_cuda.tree_mst_plain(weights, h, w))
     tree = tree_filter_cuda.tree_root(sel, emb, h, w, b, 0.02)
+    used = torch.arange(V + 1, device=cuda_device) <= tree.n_levels[:, None].long()
+    # two launches give the same bits (the level offsets past each image's count are not written)
+    again = tree_filter_cuda.tree_root_cuda(sel, emb, h, w, b, 0.02)
+    for name, first, second in zip(tree_filter_cuda.BFSTree._fields, tree, again):
+        if name == "level":
+            first, second = first[used], second[used]
+        assert torch.equal(first, second), f"K2 gave two {name} arrays on the same inputs"
     twin = tree_filter_cuda.tree_root_plain(sel, emb, h, w, b, 0.02)
     for name in ("order", "parent", "ppos", "cptr", "n_levels"):
         assert torch.equal(getattr(tree, name), getattr(twin, name)), name
-    used = torch.arange(V + 1, device=cuda_device) <= tree.n_levels[:, None].long()
     assert torch.equal(tree.level[used], twin.level[used])
     torch.testing.assert_close(tree.w, twin.w, rtol=1e-6, atol=1.2e-38)
     high = tree.images(b, 2 * b)
@@ -344,7 +350,103 @@ def test_tree_kernels_match_plain_twins(cuda_device, b, h, w, c):
     for a, bb in zip(got, want):
         torch.testing.assert_close(a, bb, rtol=1e-3, atol=1e-4 * bb.abs().max().item())
     torch.cuda.synchronize()
-    assert tree_filter_cuda.launches == {"tree_mst": 1, "tree_root": 1, "tree_fwd": 1, "tree_bwd": 1}
+    assert tree_filter_cuda.launches == {"tree_mst": 1, "tree_root": 2, "tree_fwd": 1, "tree_bwd": 1}
+
+
+def _comb_weights(h, w):
+    """MST weights whose tree is row 0 and every column hanging from it: the
+    level of (i, j) is i + j, so the middle levels hold min(h, w) vertices."""
+    from fedicra_torch.ops.mst import grid_edges
+
+    eu, ev = grid_edges(h, w)
+    horizontal = ev == eu + 1
+    return np.where(~horizontal | (eu < w), 1.0, 10.0).astype(np.float32)
+
+
+def _filter_both_trees(b, h, w, c, weights, rng, dev, **instance):
+    """K3 and K4 on b low trees and b high trees of one MST (the same
+    structure, the weights from random guides), with a passes instance;
+    returns the trees and ((y, dx, d embed) of the low, of the high)."""
+    V = h * w
+    emb = torch.tensor(rng.normal(size=(2 * b, V, c)), dtype=torch.float32, device=dev)
+    sel = tree_filter_cuda.tree_mst(weights.expand(2 * b, -1).contiguous(), h, w)
+    tree = tree_filter_cuda.tree_root(sel, emb, h, w, b, 0.02)
+    x = torch.softmax(torch.tensor(rng.normal(size=(b, V, c)), dtype=torch.float32, device=dev), -1)
+    g = torch.tensor(rng.normal(size=(b, V, c)), dtype=torch.float32, device=dev)
+    out = []
+    for k, embed in ((0, None), (1, emb[b:].contiguous())):
+        t = tree.images(k * b, (k + 1) * b)
+        launches = dict(tree_filter_cuda.launches)
+        A, F, y = tree_filter_cuda.tree_filter_fwd_cuda(x, t, **instance)
+        dx, de = tree_filter_cuda.tree_filter_bwd_cuda(g, y, A, F, t, embed, **instance)
+        torch.cuda.synchronize()
+        assert tree_filter_cuda.launches["tree_fwd"] == launches["tree_fwd"] + 1
+        assert tree_filter_cuda.launches["tree_bwd"] == launches["tree_bwd"] + 1
+        out.append((t, x, g, embed, (A, F, y), (dx, de)))
+    return tree, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, h, w, window", [
+    ("serpentine", 32, 32, tree_filter_cuda.WINDOW),
+    ("serpentine", 96, 96, tree_filter_cuda.WINDOW),
+    ("serpentine", 33, 37, tree_filter_cuda.SMALL_WINDOW),
+    ("comb", 96, 80, tree_filter_cuda.SMALL_WINDOW),
+    ("comb", 96, 80, tree_filter_cuda.WINDOW),
+])
+def test_tree_filter_kernels_on_deep_and_wide_trees(cuda_device, kind, h, w, window):
+    """K3's y and K4's dx and d embed against the twins (rtol 1e-4 / 1e-3,
+    as on the main path's trees) on a path-shaped tree (depth V - 1; at 96^2
+    more levels than the passes keep in shared memory, so their offsets are
+    streamed) and on a comb, whose middle levels with the level they read
+    span more than the small window's 64 positions; one launch counted a
+    call. The small window gives the main window's bits."""
+    b, c, V = 2, 3, h * w
+    rng = np.random.default_rng(V)
+    make = serpentine_weights if kind == "serpentine" else _comb_weights
+    weights = torch.tensor(make(h, w), device=cuda_device)
+    tree_filter_cuda.reset_launches()
+    tree, runs = _filter_both_trees(b, h, w, c, weights, rng, cuda_device, window=window)
+    levels = tree.level.long().cpu()
+    n_levels = int(tree.n_levels[0])
+    if kind == "serpentine":
+        assert (tree.n_levels == V).all()
+    else:
+        span = max(int(levels[0, min(L + 2, n_levels)] - levels[0, L]) for L in range(n_levels))
+        assert span > tree_filter_cuda.SMALL_WINDOW and n_levels == h + w - 1
+    for t, x, g, embed, (A, F, y), (dx, de) in runs:
+        torch.testing.assert_close(y, tree_filter_cuda.tree_filter_fwd_plain(x, t)[2], rtol=1e-4, atol=1e-5)
+        want = tree_filter_cuda.tree_filter_bwd_plain(g, y, A, F, t, embed)
+        for a, bb in zip((dx, de), want):
+            if bb is None:
+                assert a is None
+                continue
+            torch.testing.assert_close(a, bb, rtol=1e-3, atol=1e-4 * bb.abs().max().item())
+        # the same sums in the same order whatever the window
+        if window != tree_filter_cuda.WINDOW:
+            A2, F2, y2 = tree_filter_cuda.tree_filter_fwd_cuda(x, t)
+            dx2, de2 = tree_filter_cuda.tree_filter_bwd_cuda(g, y, A, F, t, embed)
+            assert torch.equal(A2, A) and torch.equal(F2, F) and torch.equal(y2, y)
+            assert torch.equal(dx2, dx) and (de is None or torch.equal(de2, de))
+
+
+@pytest.mark.cuda
+def test_tree_filter_stamps_time_each_pass(cuda_device):
+    """The passes' %globaltimer stamps: start <= between passes <= end on
+    every image, and the outputs equal an unstamped launch's."""
+    b, h, w, c = 3, 40, 40, 3
+    rng = np.random.default_rng(5)
+    weights = torch.tensor(rng.uniform(1, 2, size=tree_filter_cuda.num_grid_edges(h, w)),
+                           dtype=torch.float32, device=cuda_device)
+    _, runs = _filter_both_trees(b, h, w, c, weights, rng, cuda_device)
+    t, x, g, embed, (A, F, y), (dx, de) = runs[1]
+    stamps = torch.zeros((b, 3), dtype=torch.int64, device=cuda_device)
+    assert torch.equal(tree_filter_cuda.tree_filter_fwd_cuda(x, t, stamps=stamps)[2], y)
+    assert (stamps[:, 0] > 0).all() and (stamps[:, 1] >= stamps[:, 0]).all()
+    assert (stamps[:, 2] >= stamps[:, 1]).all()
+    stamps.zero_()
+    assert torch.equal(tree_filter_cuda.tree_filter_bwd_cuda(g, y, A, F, t, embed, stamps=stamps)[1], de)
+    assert (stamps[:, 0] > 0).all() and (stamps[:, 2] >= stamps[:, 1]).all()
 
 
 @pytest.mark.cuda
@@ -361,3 +463,12 @@ def test_tree_kernels_refuse_unsupported_inputs(cuda_device):
     tree = tree_filter_cuda.tree_root_cuda(sel, torch.zeros(1, V, 3, device=cuda_device), h, w, 1, 0.02)
     with pytest.raises(ValueError, match="channels"):
         tree_filter_cuda.tree_filter_fwd_cuda(torch.zeros(1, V, 5, device=cuda_device), tree)
+    x = torch.zeros(1, V, 3, device=cuda_device)
+    with pytest.raises(ValueError, match="no passes instance"):
+        tree_filter_cuda.tree_filter_fwd_cuda(x, tree, window=128)
+    with pytest.raises(ValueError, match="no passes instance"):
+        tree_filter_cuda.tree_filter_bwd_cuda(x, x, torch.zeros(1, V, 4, device=cuda_device),
+                                              torch.zeros(1, V, 4, device=cuda_device), tree, None,
+                                              window=32)
+    with pytest.raises(ValueError, match="stamps"):
+        tree_filter_cuda.tree_filter_fwd_cuda(x, tree, stamps=torch.zeros(1, 3, device=cuda_device))

@@ -5,7 +5,8 @@ selection, BFS rooting, the filter's forward, its backward) and a plain
 PyTorch twin of each, which CPU tensors take. The same numpy inputs go
 through each twin and through ``fedicra_tpu.native`` (``boruvka_mst_batch``,
 ``tree_low_structure_build``, ``tree_filter_host_batch``), and through the
-port's losses and JAX's ``host_offload=True``.
+port's losses and JAX's ``host_offload=True``: on CPU tensors the port's
+``host_offload=True`` runs the kernel route's composition on the twins.
 
 Tolerances: the MST, BFS order and parents are exact (a unique MST under the
 order (weight, edge index), and the same queue discipline). The filter
@@ -51,6 +52,18 @@ def _noise(rng, b, v, d, scale=1.0):
     return (scale * rng.uniform(size=(b, v, d))).astype(np.float32)
 
 
+def _root_twice(sel, embed, h, w, n_low):
+    """``tree_root`` on CPU tensors (the BFS twin), twice on the same inputs:
+    all seven arrays must come back with the same bits."""
+    first, second = (tree_filter_cuda.tree_root(sel, embed, h, w, n_low, SIGMA) for _ in range(2))
+    for name, a, b in zip(tree_filter_cuda.BFSTree._fields, first, second):
+        assert a.dtype == b.dtype and torch.equal(a, b), (
+            f"tree_root_plain gave two {name} arrays on the same inputs (sel {tuple(sel.shape)}, "
+            f"embed {tuple(embed.shape)}, h={h}, w={w}, n_low={n_low}): max |diff| "
+            f"{(a.double() - b.double()).abs().max().item():.3g}")
+    return first
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_mst_twin_equals_native_boruvka(native_lib, shape):
     b, h, w = shape
@@ -90,7 +103,7 @@ def test_root_twin_equals_native_low_structure(native_lib, shape):
     low = _noise(np.random.default_rng(h + 1), b, h * w, 3)
     parent, order, weights = native.tree_low_structure_build(low, eu, ev, SIGMA)
     sel = tree_filter_cuda.tree_mst(torch.tensor(_mst_weights(low, eu, ev)), h, w)
-    tree = tree_filter_cuda.tree_root(sel, torch.tensor(low), h, w, b, SIGMA)
+    tree = _root_twice(sel, torch.tensor(low), h, w, b)
     np.testing.assert_array_equal(tree.order.numpy(), order)
     np.testing.assert_array_equal(tree.parent.numpy(), parent)
     # atol: the smallest normal fp32; below it exp's result is denormal
@@ -105,7 +118,7 @@ def test_root_twin_gives_high_trees_unit_sigma():
     eu, ev = grid_edges(h, w)
     emb = _noise(np.random.default_rng(3), 2 * b, h * w, 2)
     sel = tree_filter_cuda.tree_mst(torch.tensor(_mst_weights(emb, eu, ev)), h, w)
-    tree = tree_filter_cuda.tree_root(sel, torch.tensor(emb), h, w, b, SIGMA)
+    tree = _root_twice(sel, torch.tensor(emb), h, w, b)
     order, parent = tree.order.long(), tree.parent.long()
     e = torch.tensor(emb)
     diff = e.gather(1, order[..., None].expand(-1, -1, 2)) - e.gather(
@@ -187,10 +200,11 @@ def _jax_native_loss(preds, image, aux, rois, recursive):
     return float(loss), [np.asarray(a) for a in AS], [np.asarray(g) for g in grads]
 
 
-def _port_loss(preds, image, aux, rois, recursive):
+def _port_loss(preds, image, aux, rois, recursive, host_offload=None):
     leaves = [t(a).requires_grad_(True) for a in (preds, *aux)]
     loss, *AS = port_te.multi_scale_tree_energy_loss(
-        leaves[0], t(image), *leaves[1:], t(rois), 0.1, recursive=recursive)
+        leaves[0], t(image), *leaves[1:], t(rois), 0.1, recursive=recursive,
+        host_offload=host_offload)
     loss.backward()
     return loss.item(), [a.detach().numpy() for a in AS], [x.grad.numpy() for x in leaves]
 
@@ -228,33 +242,69 @@ def test_port_loss_matches_jax_host_offload(native_lib, recursive, aux_scales):
 
 @pytest.mark.parametrize("aux_scales", AUX_SCALES, ids=["full-res", "upsampled"])
 @pytest.mark.parametrize("recursive", [True, False], ids=["recursive", "additive"])
-def test_native_route_twins_match_jax_host_offload(native_lib, monkeypatch, recursive, aux_scales):
-    """The kernel route's composition (one MST and one rooting call for the
-    four trees, then the four filters) on its CPU twins against JAX's native
-    route."""
-    monkeypatch.setattr(port_te, "_use_host_offload", lambda host_offload, device: True)
+def test_native_route_twins_match_jax_host_offload(native_lib, recursive, aux_scales):
+    """``host_offload=True`` on CPU tensors, as JAX's: the kernel route's
+    composition (one MST and one rooting call for the four trees, then the
+    four filters) on its CPU twins against JAX's native route."""
     inputs = _loss_inputs(seed=30 + recursive, aux_scales=aux_scales)
     tree_filter.reset_calls()
-    got = _port_loss(*inputs, recursive)
+    tree_filter_cuda.reset_launches()
+    got = _port_loss(*inputs, recursive, host_offload=True)
     assert tree_filter.calls == {"tree_filter_fwd": 0, "tree_filter_bwd": 0}
+    assert tree_filter_cuda.launches == {"tree_mst": 0, "tree_root": 0, "tree_fwd": 0, "tree_bwd": 0}
     _assert_losses_close(got, _jax_native_loss(*inputs, recursive), aux_scales == (1, 1, 1))
 
 
 @pytest.mark.parametrize("with_high", [False, True], ids=["low-only", "with-high"])
-def test_native_route_equals_plain_route_single_scale(monkeypatch, with_high):
+def test_single_scale_host_offload_matches_jax(native_lib, with_high):
+    """``tree_energy_loss(..., host_offload=True)`` on CPU tensors (the
+    twins) against JAX's ``host_offload=True``: the loss, AS and the
+    gradients to the logits and, with a high tree, to the aux logits."""
+    preds, image, aux, rois = _loss_inputs(seed=40 + with_high, aux_scales=(1, 1, 1))
+    high = aux[0] if with_high else None
+
+    def f(p, a):
+        return jax_te.tree_energy_loss(p, jnp.asarray(image), a, jnp.asarray(rois), 0.1,
+                                       host_offload=True)
+
+    argnums = (0, 1) if with_high else (0,)
+    (loss_j, AS_j), grads_j = jax.value_and_grad(f, argnums=argnums, has_aux=True)(
+        jnp.asarray(preds), None if high is None else jnp.asarray(high))
+    leaves = [t(preds).requires_grad_(True)] + ([t(high).requires_grad_(True)] if with_high else [])
+    tree_filter.reset_calls()
+    loss, AS = port_te.tree_energy_loss(leaves[0], t(image), leaves[1] if with_high else None,
+                                        t(rois), 0.1, host_offload=True)
+    loss.backward()
+    assert tree_filter.calls == {"tree_filter_fwd": 0, "tree_filter_bwd": 0}
+    _assert_losses_close((loss.item(), [AS.detach().numpy()], [x.grad.numpy() for x in leaves]),
+                         (float(loss_j), [np.asarray(AS_j)], [np.asarray(g) for g in grads_j]))
+
+
+@pytest.mark.parametrize("with_high", [False, True], ids=["low-only", "with-high"])
+def test_native_route_equals_plain_route_single_scale(with_high):
     """``tree_energy_loss`` by both routes on the same inputs (same trees,
     other filter arithmetic)."""
     preds, image, aux, rois = _loss_inputs(seed=7, h=16, w=16, aux_scales=(1, 1, 1))
     high = t(aux[0]) if with_high else None
     plain = port_te.tree_energy_loss(t(preds), t(image), high, t(rois), 0.1)
-    monkeypatch.setattr(port_te, "_use_host_offload", lambda host_offload, device: True)
-    kernel_route = port_te.tree_energy_loss(t(preds), t(image), high, t(rois), 0.1)
+    kernel_route = port_te.tree_energy_loss(t(preds), t(image), high, t(rois), 0.1, host_offload=True)
     np.testing.assert_allclose(kernel_route[0].item(), plain[0].item(), rtol=1e-5)
     np.testing.assert_allclose(kernel_route[1].numpy(), plain[1].numpy(), rtol=1e-4, atol=1e-6)
 
 
-def test_host_offload_dispatch_on_cpu_tensors():
-    """None and False take the plain route on CPU tensors; True raises."""
+TWINS = ("tree_mst_plain", "tree_root_plain", "tree_filter_fwd_plain", "tree_filter_bwd_plain")
+
+
+def test_host_offload_dispatch_on_cpu_tensors(monkeypatch):
+    """None and False take the plain route on CPU tensors; True takes the
+    native route's twins (one MST and one rooting call for all trees, a
+    forward twin a tree), with no kernel launch and no plain filter run."""
+    twin_calls = dict.fromkeys(TWINS, 0)
+    for name in TWINS:
+        def spy(*args, _name=name, _fn=getattr(tree_filter_cuda, name), **kwargs):
+            twin_calls[_name] += 1
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(tree_filter_cuda, name, spy)
     preds, image, aux, rois = _loss_inputs(seed=9, h=12, w=12)
     preds, image, rois, aux = t(preds), t(image), t(rois), [t(a) for a in aux]
     tree_filter_cuda.reset_launches()
@@ -265,10 +315,18 @@ def test_host_offload_dispatch_on_cpu_tensors():
         tree_filter.reset_calls()
         port_te.tree_energy_loss(preds, image, aux[2], rois, 0.1, host_offload=host_offload)
         assert tree_filter.calls == {"tree_filter_fwd": 2, "tree_filter_bwd": 0}
-    with pytest.raises(ValueError, match="host_offload=True needs CUDA tensors"):
-        port_te.multi_scale_tree_energy_loss(preds, image, *aux, rois, 0.1, host_offload=True)
-    with pytest.raises(ValueError, match="host_offload=True needs CUDA tensors"):
-        port_te.tree_energy_loss(preds, image, None, rois, 0.1, host_offload=True)
+    assert twin_calls == dict.fromkeys(TWINS, 0)
+    tree_filter.reset_calls()
+    port_te.multi_scale_tree_energy_loss(preds, image, *aux, rois, 0.1, host_offload=True)
+    assert twin_calls == {"tree_mst_plain": 1, "tree_root_plain": 1, "tree_filter_fwd_plain": 4,
+                          "tree_filter_bwd_plain": 0}
+    twin_calls.update(dict.fromkeys(TWINS, 0))
+    loss, _ = port_te.tree_energy_loss(preds.requires_grad_(True), image, None, rois, 0.1,
+                                       host_offload=True)
+    loss.backward()
+    assert twin_calls == {"tree_mst_plain": 1, "tree_root_plain": 1, "tree_filter_fwd_plain": 1,
+                          "tree_filter_bwd_plain": 1}
+    assert tree_filter.calls == {"tree_filter_fwd": 0, "tree_filter_bwd": 0}
     assert tree_filter_cuda.launches == {"tree_mst": 0, "tree_root": 0, "tree_fwd": 0, "tree_bwd": 0}
 
 

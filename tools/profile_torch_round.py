@@ -32,8 +32,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # convolution: cuDNN's batch-norm kernels carry "cudnn" in their names).
 FAMILIES = (
     ("gated_crf", ("gated_crf",)),  # gated_crf_fused_kernel
-    # csrc/tree_filter.cu: MST, BFS rooting, the filter's forward and backward
-    ("tree_kernels", ("mst_kernel", "root_kernel", "filter_fwd_kernel", "filter_bwd_kernel")),
+    # csrc/tree_filter.cu: MST, BFS rooting, and the filter's forward and
+    # backward (the parallel gathers and scatters, the passes, d embed)
+    ("tree_kernels", ("mst_kernel", "root_kernel", "fwd_gather_kernel", "tree_pass_kernel",
+                      "fwd_scatter_kernel", "bwd_gather_kernel", "bwd_scatter_kernel",
+                      "dembed_kernel")),
     ("sort", ("sort", "radix")),
     ("gather_scatter", ("gather", "scatter", "index")),
     ("batch_norm", ("batch_norm", "bn_", "batchnorm", "welford")),
