@@ -28,10 +28,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    exactly and its weights at rtol 1e-6, the filter's forward (rtol 1e-4)
    and backward (rtol 1e-3) and the same filter against the plain route's
    on the same trees; each kernel timed per call and back to back beside its
-   twin and bound; each tree's BFS depth and widest level; each filter
-   pass's time and ns a level by tree (the passes kernel's %globaltimer
-   stamps, with the passes' consumer-warp count) and on a path-shaped
-   tree;
+   twin and bound; the MST's counts by tree (phase-1 rounds, the components
+   and edges phase 1 leaves, phase-2 rounds) and its phases' times, the
+   slowest phase 2 of the images whose contracted graph starts on device
+   memory, and its phase-1 kernel's registers and local memory (within
+   their budget); the BFS's time
+   and ns a level by tree (its %globaltimer stamps); each tree's BFS depth
+   and widest level; each filter pass's time and ns a level by tree (the passes
+   kernel's stamps, with the passes' consumer-warp count); on a
+   path-shaped tree the MST and the BFS (against the path's arrays, and
+   the twin on a 64 x 64 path) and each pass's ns a level; and the MST and
+   BFS of one FAZ-shaped step (256^2, C = 2, a 1-channel low guide)
+   against their twins;
 5. the "ours" objective (tree term on) and ``treeenergy_add`` on the card
    (the kernel route) against the CPU (the plain route) at a small input;
 6. the tree-off round: one FedICRA local round of "ours" at
@@ -697,6 +705,175 @@ def tree_pass_times(name: str, kernel, args, n_levels, b: int) -> None:
         + "; ".join(parts))
 
 
+MST_COUNTS = ("phase-1 rounds", "components left", "edges left", "phase-2 rounds",
+              "of them on device memory")
+TREE_NAMES = ("low", "high 4x", "high 2x", "high 1x")
+# mst_tile_kernel<32>'s register file a thread: the launch bound (two 1,024-thread
+# blocks an SM) caps it at 32 registers, and ptxas spills 32 bytes to local
+# memory; that build ran faster than a 44-register one without the cap (PERF.md
+# section 6). A build that needs more fails the phase.
+MST_TILE_REGISTERS, MST_TILE_LOCAL_BYTES = 32, 32
+
+
+def hold_tree_to_twin(name: str, tree, twin, V: int) -> float:
+    """K2's arrays exactly the BFS twin's (the level offsets up to each
+    image's count), w at rtol 1e-6; returns w's max |diff|."""
+    torch.cuda.synchronize()
+    for field in ("order", "parent", "ppos", "cptr", "n_levels"):
+        if not torch.equal(getattr(tree, field), getattr(twin, field)):
+            raise AssertionError(f"{name}: {field} differs from the BFS twin's")
+    used = torch.arange(V + 1, device=tree.level.device) <= tree.n_levels[:, None].long()
+    if not torch.equal(tree.level[used], twin.level[used]):
+        raise AssertionError(f"{name}: level offsets differ from the BFS twin's")
+    # atol: the smallest normal fp32 (denormal weights)
+    torch.testing.assert_close(tree.w, twin.w, rtol=1e-6, atol=1.2e-38)
+    return (tree.w - twin.w).abs().max().item()
+
+
+def mst_phases(dist, h: int, w: int, b: int) -> None:
+    """K1's counts by tree (max and mean over its images) and its phases'
+    times (the kernel's %globaltimer stamps: phase 1 from its first tile's
+    start to its last tile's end over all images, then phase 2's blocks;
+    the slowest phase 2 of the images whose first rounds ran on device
+    memory). Its phase-1 kernel must keep to its registers and local
+    memory (``MST_TILE_REGISTERS``, ``MST_TILE_LOCAL_BYTES``)."""
+    from fedicra_torch.ops import tree_filter_cuda as tfc
+
+    n = dist.shape[0]
+    counts = torch.zeros((n, 5), dtype=torch.int32, device=dist.device)
+    stamps = torch.zeros((n, 4), dtype=torch.int64, device=dist.device)
+    tfc.tree_mst_cuda(dist, h, w)  # warm
+    tfc.tree_mst_cuda(dist, h, w, counts=counts, stamps=stamps)
+    torch.cuda.synchronize()
+    c, st = counts.cpu().double(), stamps.cpu().double()
+    for k in range(n // b):
+        ck = c[k * b:(k + 1) * b]
+        log(f"[tree-kernels] tree_mst counts, tree {k} ({TREE_NAMES[k]}), max / mean over {b} images: "
+            + ", ".join(f"{name} {ck[:, i].max().item():.0f} / {ck[:, i].mean().item():.1f}"
+                        for i, name in enumerate(MST_COUNTS)))
+    p1 = (st[:, 1].max() - st[:, 0].min()).item() / 1e6
+    p2 = (st[:, 3].max() - st[:, 2].min()).item() / 1e6
+    between = (st[:, 2].min() - st[:, 1].max()).item() / 1e6
+    p2_img = (st[:, 3] - st[:, 2]) / 1e6
+    on_dev = c[:, 4] > 0
+    log(f"[tree-kernels] tree_mst phases (%globaltimer, tile {tfc.MST_TILE}): phase 1 "
+        f"{p1:.4f} ms, to phase 2's start {between:.4f} ms (phase 1b), phase 2 {p2:.4f} ms "
+        f"(slowest image {p2_img.max().item():.4f} ms; of the {int(on_dev.sum())} images "
+        f"starting on device memory {p2_img[on_dev].max().item() if on_dev.any() else 0.0:.4f} ms, "
+        f"of the others {p2_img[~on_dev].max().item() if (~on_dev).any() else 0.0:.4f} ms)")
+    regs, local = tfc.mst_tile_registers()
+    if regs > MST_TILE_REGISTERS or local > MST_TILE_LOCAL_BYTES:
+        raise AssertionError(f"mst_tile_kernel<{tfc.MST_TILE}> takes {regs} registers and {local} "
+                             f"local bytes a thread (budget {MST_TILE_REGISTERS}, {MST_TILE_LOCAL_BYTES})")
+    log(f"[tree-kernels] mst_tile_kernel<{tfc.MST_TILE}>: {regs} registers and {local} bytes of local "
+        f"memory (spills) a thread (budget {MST_TILE_REGISTERS}, {MST_TILE_LOCAL_BYTES})")
+
+
+def bfs_levels_by_tree(sel, embed, h: int, w: int, b: int, sigma: float, n_levels) -> None:
+    """K2's BFS time and ns a level by tree, from its %globaltimer stamps."""
+    from fedicra_torch.ops import tree_filter_cuda as tfc
+
+    n = sel.shape[0]
+    stamps = torch.zeros((n, 2), dtype=torch.int64, device=sel.device)
+    tfc.tree_root_cuda(sel, embed, h, w, b, sigma, stamps=stamps)
+    torch.cuda.synchronize()
+    st = stamps.cpu().double()
+    bfs = st[:, 1] - st[:, 0]
+    per = bfs / n_levels.double()
+    log("[tree-kernels] tree_root BFS by tree (%globaltimer): "
+        + "; ".join(f"{TREE_NAMES[k]} {bfs[k * b:(k + 1) * b].max().item() / 1e6:.4f} ms "
+                    f"({per[k * b:(k + 1) * b].mean().item():.1f} ns a level)" for k in range(n // b)))
+
+
+def serpentine_order(h: int, w: int) -> np.ndarray:
+    """The queue of ``serpentine_weights``'s tree from vertex 0: row by row,
+    even rows left to right, odd rows right to left."""
+    order = np.arange(h * w).reshape(h, w)
+    order[1::2] = order[1::2, ::-1]
+    return order.reshape(-1)
+
+
+def path_tree_checked(h: int, w: int, embed, sigma: float):
+    """K1 and K2 on a path-shaped tree (``serpentine_weights``, one image):
+    the MST bit for bit ``boruvka_mst``'s; the BFS arrays exactly the path's
+    (order the serpentine, each position's parent the one before, child
+    ranges one wide, V levels of one vertex: what the twin gives, which would
+    walk all V levels), and the twin's on a 64 x 64 path. Returns the tree."""
+    from fedicra_torch.ops import tree_filter_cuda as tfc
+    from fedicra_torch.ops.mst import boruvka_mst, grid_edges
+
+    dev = embed.device
+    V = h * w
+    sw = torch.as_tensor(serpentine_weights(h, w), device=dev)[None].contiguous()
+    eu, ev = (torch.as_tensor(a, device=dev).long() for a in grid_edges(h, w))
+    sel = tfc.tree_mst_cuda(sw, h, w)
+    if not torch.equal(sel, boruvka_mst(eu, ev, sw, V)):
+        raise AssertionError("tree_mst on the path-shaped tree: edges differ from boruvka_mst's")
+    path = tfc.tree_root_cuda(sel, embed, h, w, 0, sigma)
+    order = torch.as_tensor(serpentine_order(h, w), dtype=torch.int32, device=dev)
+    q = torch.arange(V, dtype=torch.int32, device=dev)
+    parent = torch.empty_like(order)
+    parent[order.long()] = torch.cat([order[:1], order[:-1]])
+    want = {"order": order, "parent": parent, "ppos": (q - 1).clamp(min=0),
+            "cptr": torch.cat([q + 1, q[-1:] + 1]).clamp(max=V), "level": torch.cat([q, q[-1:] + 1]),
+            "n_levels": torch.tensor([V], dtype=torch.int32, device=dev)}
+    for field, a in want.items():
+        if not torch.equal(getattr(path, field)[0], a.reshape(getattr(path, field)[0].shape)):
+            raise AssertionError(f"tree_root on the path-shaped tree: {field} is not the path's")
+    stamps = torch.zeros((1, 2), dtype=torch.int64, device=dev)
+    tfc.tree_root_cuda(sel, embed, h, w, 0, sigma, stamps=stamps)
+    torch.cuda.synchronize()
+    bfs_ns = (stamps[0, 1] - stamps[0, 0]).item()
+    hs = 64
+    ss = torch.as_tensor(serpentine_weights(hs, hs), device=dev)[None].contiguous()
+    e_s, v_s = (torch.as_tensor(a, device=dev).long() for a in grid_edges(hs, hs))
+    sel_s = tfc.tree_mst_cuda(ss, hs, hs)
+    if not torch.equal(sel_s, boruvka_mst(e_s, v_s, ss, hs * hs)):
+        raise AssertionError("tree_mst on the 64 x 64 path: edges differ from boruvka_mst's")
+    emb_s = embed[:, :hs * hs].contiguous()
+    hold_tree_to_twin("tree_root on the 64 x 64 path", tfc.tree_root_cuda(sel_s, emb_s, hs, hs, 0, sigma),
+                      tfc.tree_root_plain(sel_s, emb_s, hs, hs, 0, sigma), hs * hs)
+    log(f"[tree-kernels] a path-shaped tree ({V} levels of one vertex): tree_mst bit for bit "
+        f"boruvka_mst's, tree_root the path's arrays exactly (and the twin's on a 64 x 64 path); "
+        f"its BFS {bfs_ns / 1e6:.4f} ms, {bfs_ns / V:.1f} ns a level")
+    return path
+
+
+def tree_kernels_faz_step(dev) -> None:
+    """K1 and K2 on one FAZ-shaped step's four trees (batch 12, 256^2, C = 2,
+    the low guide a 1-channel image) through ``native_structures``, as a
+    FAZ run builds them: the MST bit for bit ``boruvka_mst``'s, the trees
+    exactly the BFS twin's on the same guides (zero-padded to 2 channels)."""
+    import torch.nn.functional as F
+
+    from fedicra_torch.losses.tree_energy import mst_edge_weights, native_structures
+    from fedicra_torch.ops import tree_filter_cuda as tfc
+    from fedicra_torch.ops.mst import boruvka_mst, grid_edges
+
+    b, h, w, c, sigma = 12, 256, 256, 2, 0.02
+    V = h * w
+    rng = np.random.default_rng(6)
+    low, highs = tree_guides(dev, rng, b, h, w, c)
+    guides = [low[..., :1].contiguous(), *highs]
+    eu, ev = (torch.as_tensor(a, device=dev).long() for a in grid_edges(h, w))
+    dist = mst_edge_weights(guides, eu, ev)
+    sel = tfc.tree_mst_cuda(dist, h, w)
+    if not torch.equal(sel, boruvka_mst(eu, ev, dist, V)):
+        raise AssertionError("tree_mst on the FAZ step: edges differ from boruvka_mst's")
+    before = dict(tfc.launches)
+    trees = native_structures(guides, sigma)
+    if tfc.launches["tree_mst"] != before["tree_mst"] + 1 or tfc.launches["tree_root"] != before["tree_root"] + 1:
+        raise AssertionError("native_structures did not take one K1 and one K2 launch")
+    embed = torch.cat([F.pad(g.reshape(b, V, -1), (0, c - g.shape[-1])) for g in guides]).contiguous()
+    twin = tfc.tree_root_plain(sel, embed, h, w, b, sigma)
+    tree = tfc.BFSTree(*(torch.cat(parts) for parts in zip(*trees)))
+    err = hold_tree_to_twin("tree_root on the FAZ step", tree, twin, V)
+    depth = int(tree.n_levels.max()) - 1
+    log(f"[tree-kernels] FAZ step (4 trees x {b} images of {h}^2, C = {c}, 1-channel low guide): "
+        f"tree_mst bit for bit boruvka_mst's, tree_root the twin's (w max |diff| {err:.3g}); "
+        f"max BFS depth {depth}")
+
+
 def tree_chain_saved_bytes(b: int, h: int, w: int, c: int) -> int:
     """Bytes a filter launch moves beyond its function's: the forward's A and
     F ([x, 1] channels each), written by ``tree_fwd`` and read again by
@@ -745,21 +922,13 @@ def phase_tree_kernels(dev):
     errs["tree_mst"] = float(differ.sum())
     log(f"[tree-kernels] tree_mst: all {n} images select boruvka_mst's edges bit for bit")
     timed("tree_mst", lambda: tfc.tree_mst_cuda(dist, h, w), lambda: boruvka_mst(eu, ev, dist, V))
+    mst_phases(dist, h, w, b)
 
     # K2: the BFS twin's arrays exactly, its weights within rtol 1e-6
     embed = torch.cat([g.reshape(b, V, -1) for g in guides]).contiguous()
     tree = tfc.tree_root_cuda(sel, embed, h, w, b, sigma)
     tree_p = tfc.tree_root_plain(sel, embed, h, w, b, sigma)
-    torch.cuda.synchronize()
-    for name in ("order", "parent", "ppos", "cptr", "n_levels"):
-        if not torch.equal(getattr(tree, name), getattr(tree_p, name)):
-            raise AssertionError(f"tree_root: {name} differs from the BFS twin's")
-    used = torch.arange(V + 1, device=dev) <= tree.n_levels[:, None].long()  # level[0..n_levels]
-    if not torch.equal(tree.level[used], tree_p.level[used]):
-        raise AssertionError("tree_root: level offsets differ from the BFS twin's")
-    # atol: the smallest normal fp32 (denormal weights)
-    torch.testing.assert_close(tree.w, tree_p.w, rtol=1e-6, atol=1.2e-38)
-    errs["tree_root"] = (tree.w - tree_p.w).abs().max().item()
+    errs["tree_root"] = hold_tree_to_twin("tree_root", tree, tree_p, V)
     n_levels = tree.n_levels.long().cpu()
     work = tree_chain_work(b, h, w, c, low.shape[-1], int((n_levels + 1).sum()))
     widths = torch.diff(tree.level.long(), dim=1).cpu()
@@ -775,6 +944,7 @@ def phase_tree_kernels(dev):
         f"w max |diff| {errs['tree_root']:.3g}")
     timed("tree_root", lambda: tfc.tree_root_cuda(sel, embed, h, w, b, sigma),
           lambda: tfc.tree_root_plain(sel, embed, h, w, b, sigma), plain_reps=1)
+    bfs_levels_by_tree(sel, embed, h, w, b, sigma, n_levels)
 
     # K3 and K4 on the step's four trees, chained as the path chains them:
     # the low tree filters the probabilities and each high tree the y before
@@ -826,8 +996,7 @@ def phase_tree_kernels(dev):
                        cuda_loop_ms(chain_of_four, n=10, reps=3) / 4, plain_ms[name])
         tree_pass_times(name, kernel, args, n_levels, b)
     # the per-level floor: a path-shaped tree of one image (V levels of one vertex)
-    sw = torch.as_tensor(serpentine_weights(h, w), device=dev)[None].contiguous()
-    path = tfc.tree_root_cuda(tfc.tree_mst_cuda(sw, h, w), embed[:1].contiguous(), h, w, 0, sigma)
+    path = path_tree_checked(h, w, embed[:1].contiguous(), sigma)
     xp, gp = x[:1].contiguous(), g[:1].contiguous()
     Ap, Fp, yp = tfc.tree_filter_fwd_cuda(xp, path)
     floor = []
@@ -842,6 +1011,7 @@ def phase_tree_kernels(dev):
     log(f"[tree-kernels] a path-shaped tree ({V} levels of one vertex, one image), ns a level: "
         + "; ".join(floor))
     del path, Ap, Fp, yp
+    tree_kernels_faz_step(dev)
     log(f"[tree-kernels] the design's extra traffic: tree_fwd writes A and F and tree_bwd reads "
         f"them, {tree_chain_saved_bytes(b, h, w, c) / 1e6:.1f} MB a launch each, beyond the bounds' "
         f"bytes (the native code recomputes them from x)")

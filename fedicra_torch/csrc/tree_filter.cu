@@ -1,13 +1,15 @@
 // The tree-energy chain for sm_90a: MST selection, BFS rooting, the two-pass
-// tree filter and its analytic backward (K1-K4; K3 and K4 a few launches
-// each).
+// tree filter and its analytic backward (K1-K4, each a few launches).
 //
 // Replaces the native route of fedicra_tpu (host C++ there, one CPU thread
 // per image):
-//   K1 mst_kernel       <- native/boruvka.cpp boruvka_mst_batch (:93) and
-//                          native/tree_filter_host.cpp mst_select (:78)
-//   K2 root_kernel      <- tree_filter_host.cpp root_tree (:131), finish_tree
-//                          (:124) and build_level's weights (:434)
+//   K1 (MST)            <- native/boruvka.cpp boruvka_mst_batch (:93) and
+//                          native/tree_filter_host.cpp mst_select (:78):
+//                          mst_tile_kernel, mst_cross_kernel,
+//                          mst_contract_kernel
+//   K2 (rooting)        <- tree_filter_host.cpp root_tree (:131), finish_tree
+//                          (:124) and build_level's weights (:434):
+//                          tree_mask_kernel, tree_bfs_kernel, root_weights_kernel
 //   K3 (filter forward) <- tree_filter_host.cpp two_pass_ord_t (:166) on
 //                          [x, 1], y = F_x / F_1 (filter_one :230, :266-280,
 //                          level_forward :468): fwd_gather_kernel,
@@ -22,49 +24,82 @@
 // grid_edges lists them: vertical edges first, edge i*W + j joins (i, j) and
 // (i+1, j); then horizontal edges, edge (H-1)*W + i*(W-1) + j joins (i, j)
 // and (i, j+1). A vertex's four edges are found from its coordinates, so no
-// kernel reads an edge list or builds an adjacency list. Indices are int32.
+// kernel reads the grid's edge list or builds an adjacency list. Indices are
+// int32.
 //
 // K1 (MST). Boruvka under the total order (weight, edge index): each edge
 // packs its positive fp32 weight's bits (order-preserving as uint32) over its
-// index into one uint64 key, so one atomicMin per endpoint component finds
-// each component's least edge, ties broken toward the smaller index. Each
-// component hooks to the one across that edge (of a mutual pair, which shares
-// the edge, the smaller id stays root), pointer jumping flattens the hooks,
-// and every vertex takes its new label. The MST under a total order is
+// index into one uint64 key, so a minimum finds each component's least edge,
+// ties broken toward the smaller index. The MST under a total order is
 // unique, so the selection equals ops/mst.py boruvka_mst's and mst_select's
-// bit for bit on the same weights. One block of 1024 threads per image loops
-// over the rounds (at most ceil(log2 V), each at least halves the
-// components), so one launch covers all images of a step.
+// bit for bit on the same weights, whatever the order of the rounds. Three
+// launches a call:
+//   K1a mst_tile_kernel     one block of 1,024 threads a tile of 32 x 32
+//                           vertices (144 tiles an image of 384^2, on every
+//                           SM): Boruvka rounds in shared memory, where a
+//                           component hooks across its least edge only when
+//                           that edge is the tile's own and waits when it
+//                           leaves the tile (exact by the cut property); then
+//                           each vertex's dense component label, the
+//                           selection of the edges the tile owns, and each
+//                           pair of its components that its edges join, once
+//                           (a hash table in shared memory), with the least
+//                           key;
+//   K1b mst_cross_kernel    the edges between tiles with their endpoints'
+//                           labels, a run of a warp's edges that joins the
+//                           same pair once;
+//   K1c mst_contract_kernel one block an image: Boruvka rounds on that
+//                           contracted graph (up to ~6,700 components and
+//                           ~18,000 edges an image at 384^2), dropping each
+//                           round the edges that have come to lie inside one
+//                           component; in shared memory (16-bit labels) once
+//                           the graph fits, its first rounds on device memory
+//                           until then, in the same kernel.
 // Bound: the function reads the weights once and writes the mask once
 // (5 bytes an edge): ~21 us for 48 images of 384^2 at 3.35 TB/s. The design
-// is bound instead by its rounds: each re-reads every edge's endpoint labels
-// and the per-vertex labels (L2-resident per image), and a block can use only
-// one SM, so 48 images fill 48 of 132 SMs.
+// reads each weight about twice and is bound instead by phase 1's rounds
+// (each a handful of block barriers over every vertex of a tile) and by
+// phase 2's, on 48 of the 132 SMs.
 //
-// K2 (rooting). A BFS from vertex 0 over the selected edges, one block per
-// image looping over the levels inside the kernel. When a vertex is dequeued
-// root_tree appends its unvisited neighbours in the order its adjacency list
-// holds them, decreasing edge index (it inserts at the list head), so the
-// children of (i, j) come as right, left, down, up (the horizontal edges
-// follow the vertical ones in the numbering). A level's vertices count their
-// children, a block-wide scan places them, and the next level is contiguous
-// in the queue, ordered by parent position: the BFS queue of root_tree
-// exactly. Outputs per image: order (queue position -> vertex), parent (by
-// vertex), ppos (parent's queue position; the root's is 0), cptr (children of
-// position q are positions cptr[q] .. cptr[q+1]-1), level (level L spans
-// level[L] .. level[L+1]-1), the number of levels, and the filter weights in
-// queue order, w = exp(-||embed(v) - embed(parent)||^2 * inv_sigma) with
-// inv_sigma = 1/sigma on the first n_low images (the low tree) and 1 on the
-// rest, 0 at the root. The weights are formed after the BFS, in parallel:
-// the squared distance as a chain of fused multiply-adds in channel order
-// (what g++ -O3 -march=native makes of the native code's s += df * df, and
-// what the plain twin computes), times inv_sigma, negated, expf.
+// K2 (rooting). A BFS from vertex 0 over the selected edges. When a vertex
+// is dequeued root_tree appends its unvisited neighbours in the order its
+// adjacency list holds them, decreasing edge index (it inserts at the list
+// head), so the children of (i, j) come as right, left, down, up (the
+// horizontal edges follow the vertical ones in the numbering). The next
+// level is contiguous in the queue, ordered by parent position: the BFS
+// queue of root_tree exactly. Outputs per image: order (queue position ->
+// vertex), parent (by vertex), ppos (parent's queue position; the root's is
+// 0), cptr (children of position q are positions cptr[q] .. cptr[q+1]-1),
+// level (level L spans level[L] .. level[L+1]-1), the number of levels, and
+// the filter weights in queue order, w = exp(-||embed(v) - embed(parent)||^2
+// * inv_sigma) with inv_sigma = 1/sigma on the first n_low images (the low
+// tree) and 1 on the rest, 0 at the root: the squared distance as a chain of
+// fused multiply-adds in channel order (what g++ -O3 -march=native makes of
+// the native code's s += df * df, and what the plain twin computes), times
+// inv_sigma, negated, expf. Three launches a call:
+//   K2a tree_mask_kernel    each vertex's selected edges as 4 bits in child
+//                           order, two vertices a byte (73,728 bytes an
+//                           image of 384^2), on every SM;
+//   K2b tree_bfs_kernel     one block of 4 warps an image: the masks in
+//                           shared memory (one bulk copy), the current and
+//                           next level's entries (vertex, direction to the
+//                           parent) in a shared ring; a vertex's children are
+//                           its mask less its parent's bit, placed by three
+//                           ballots of their counts' bits and one combine of
+//                           the warps' sums at a barrier; order, ppos and
+//                           cptr are stored as they come, the level offsets
+//                           kept in shared memory. A level not written
+//                           wholly to the ring reads its entries from device
+//                           memory, and masks too large for shared memory
+//                           are read from device memory, in the same kernel;
+//   K2c root_weights_kernel the parents by vertex and the weights, on every
+//                           SM.
 // Bound: bytes (the function's own: the mask and the embeddings in; order,
 // parent, ppos and w out, and the level offsets: ~0.064 ms for 48 images at
 // 384^2; cptr is the design's); the design is bound by the dependency
-// chain, one block step per BFS level (2,379-3,377 levels for one step's
-// trees at 384^2 in chip_smoke.py's [tree-kernels]), each a few dependent
-// L2 loads and a block scan.
+// chain, one step per BFS level (2,379-3,377 levels for one step's trees at
+// 384^2 in chip_smoke.py's [tree-kernels]), each a few dependent shared
+// loads, the ballots, two barriers and the level's stores.
 //
 // K3 (filter forward) and K4 (backward). The arithmetic is two passes over
 // the tree in BFS queue order: upward A[q] = in[q] + sum over children r
@@ -134,12 +169,9 @@
 
 namespace {
 
-constexpr int MST_THREADS = 1024;
-constexpr int THREADS = 512;
 constexpr int MAX_EMBED = 8;
 constexpr int MAX_CHILDREN = 4;  // the root's; every other vertex has at most 3
-constexpr int MAX_ROUNDS = 64;  // Boruvka needs at most ceil(log2 V) + 1
-constexpr int MAX_JUMPS = 64;   // pointer jumping, at most ceil(log2 V) + 1
+constexpr int PAR_THREADS = 256;  // the fully parallel kernels
 constexpr unsigned long long NO_EDGE = ~0ull;
 
 struct Grid {
@@ -154,18 +186,6 @@ __host__ Grid make_grid(int H, int W) {
   g.NV = (H - 1) * W;
   g.E = g.NV + H * (W - 1);
   return g;
-}
-
-__device__ __forceinline__ void edge_ends(const Grid& g, int e, int& u, int& v) {
-  if (e < g.NV) {
-    u = e;
-    v = e + g.W;
-  } else {
-    int h = e - g.NV;
-    int i = h / (g.W - 1);
-    u = i * g.W + (h - i * (g.W - 1));
-    v = u + 1;
-  }
 }
 
 // Exclusive prefix sum of x over the block; *total gets the block's sum.
@@ -197,211 +217,7 @@ __device__ int block_exclusive_scan(int x, int* total, int* scratch) {
   return out;
 }
 
-// ---- K1: Boruvka MST selection ------------------------------------------
-
-__global__ void __launch_bounds__(MST_THREADS)
-mst_kernel(const float* __restrict__ weights, unsigned char* sel_all, int* comp_all,
-           int* hook_all, unsigned long long* best_all, Grid g) {
-  const int b = blockIdx.x;
-  const float* __restrict__ w = weights + (size_t)b * g.E;
-  unsigned char* sel = sel_all + (size_t)b * g.E;
-  int* comp = comp_all + (size_t)b * g.V;  // component label (a root vertex)
-  int* hook = hook_all + (size_t)b * g.V;  // a root's parent in the hook forest
-  unsigned long long* best = best_all + (size_t)b * g.V;
-
-  for (int v = threadIdx.x; v < g.V; v += blockDim.x) {
-    comp[v] = v;
-    best[v] = NO_EDGE;
-  }
-  for (int e = threadIdx.x; e < g.E; e += blockDim.x) sel[e] = 0;
-  __syncthreads();
-
-  for (int round = 0; round < MAX_ROUNDS; ++round) {
-    // each component's least outgoing edge under (weight, index)
-    for (int e = threadIdx.x; e < g.E; e += blockDim.x) {
-      int u, v;
-      edge_ends(g, e, u, v);
-      int cu = comp[u], cv = comp[v];
-      if (cu != cv) {
-        unsigned long long key =
-            ((unsigned long long)__float_as_uint(w[e]) << 32) | (unsigned)e;
-        atomicMin(&best[cu], key);
-        atomicMin(&best[cv], key);
-      }
-    }
-    __syncthreads();
-    // hook each component across its edge; select the edge
-    int hooked = 0;
-    for (int c = threadIdx.x; c < g.V; c += blockDim.x) {
-      if (comp[c] != c) continue;
-      unsigned long long k = best[c];
-      int to = c;
-      if (k != NO_EDGE) {
-        int e = (int)(k & 0xffffffffull);
-        int u, v;
-        edge_ends(g, e, u, v);
-        int cu = comp[u], cv = comp[v];
-        int other = cu == c ? cv : cu;
-        // a mutual pair shares the edge: the smaller id stays root
-        to = (best[other] == k && c < other) ? c : other;
-        sel[e] = 1;
-        hooked = 1;
-      }
-      hook[c] = to;
-    }
-    if (!__syncthreads_or(hooked)) break;
-    // pointer jumping over the roots until every hook is a final root
-    for (int jump = 0; jump < MAX_JUMPS; ++jump) {
-      int changed = 0;
-      for (int c = threadIdx.x; c < g.V; c += blockDim.x) {
-        if (comp[c] != c) continue;
-        int h = hook[c], hh = hook[h];
-        if (hh != h) {
-          hook[c] = hh;
-          changed = 1;
-        }
-      }
-      if (!__syncthreads_or(changed)) break;
-    }
-    for (int v = threadIdx.x; v < g.V; v += blockDim.x) {
-      comp[v] = hook[comp[v]];
-      best[v] = NO_EDGE;
-    }
-    __syncthreads();
-  }
-}
-
-// ---- K2: BFS rooting at vertex 0 ----------------------------------------
-
-__global__ void __launch_bounds__(THREADS)
-root_kernel(const unsigned char* __restrict__ sel_all, const float* __restrict__ embed_all,
-            int D, Grid g, int n_low, float inv_sigma_low, int* order_all, int* parent_all,
-            int* ppos_all, int* cptr_all, int* level_all, int* nlev_all, float* w_all) {
-  __shared__ int scratch[32];
-  const int b = blockIdx.x;
-  const unsigned char* __restrict__ sel = sel_all + (size_t)b * g.E;
-  const float* __restrict__ embed = embed_all + (size_t)b * g.V * D;
-  int* order = order_all + (size_t)b * g.V;
-  int* parent = parent_all + (size_t)b * g.V;
-  int* ppos = ppos_all + (size_t)b * g.V;
-  int* cptr = cptr_all + (size_t)b * (g.V + 1);
-  int* level = level_all + (size_t)b * (g.V + 1);
-  float* w = w_all + (size_t)b * g.V;
-  const int HE = g.NV;  // first horizontal edge
-
-  if (threadIdx.x == 0) {
-    order[0] = 0;
-    parent[0] = 0;
-    ppos[0] = 0;
-    level[0] = 0;
-    level[1] = 1;
-  }
-  __syncthreads();
-
-  int start = 0, end = 1, nlev = 0;
-  while (true) {
-    int next = end;
-    for (int base = start; base < end; base += blockDim.x) {
-      const int p = base + threadIdx.x;
-      // children in root_tree's order: right, left, down, up
-      bool right = false, left = false, down = false, up = false;
-      int u = 0;
-      if (p < end) {
-        u = order[p];
-        const int pu = parent[u];
-        const int i = u / g.W, j = u - i * g.W;
-        const int row = HE + i * (g.W - 1);
-        right = j + 1 < g.W && sel[row + j] && u + 1 != pu;
-        left = j > 0 && sel[row + j - 1] && u - 1 != pu;
-        down = i + 1 < g.H && sel[u] && u + g.W != pu;
-        up = i > 0 && sel[u - g.W] && u - g.W != pu;
-      }
-      int total;
-      const int off = block_exclusive_scan((int)right + (int)left + (int)down + (int)up,
-                                           &total, scratch);
-      if (p < end) {
-        int q = next + off;
-        cptr[p] = q;
-        const int kids[4] = {u + 1, u - 1, u + g.W, u - g.W};
-        const bool has[4] = {right, left, down, up};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (!has[k] || q >= g.V) continue;  // q >= V only if sel holds a cycle
-          order[q] = kids[k];
-          parent[kids[k]] = u;
-          ppos[q] = p;
-          ++q;
-        }
-      }
-      next += total;
-    }
-    ++nlev;
-    if (next == end) break;  // the level just read had no children
-    if (next > g.V) {        // sel holds a cycle: no tree (n_levels 0)
-      nlev = 0;
-      break;
-    }
-    if (threadIdx.x == 0) level[nlev + 1] = next;
-    start = end;
-    end = next;
-    __syncthreads();  // the new level's queue entries are visible
-  }
-  if (threadIdx.x == 0) {
-    nlev_all[b] = nlev;
-    cptr[g.V] = g.V;
-  }
-  __syncthreads();
-
-  // filter weights in queue order
-  const float inv = b < n_low ? inv_sigma_low : 1.f;
-  for (int q = threadIdx.x; q < g.V; q += blockDim.x) {
-    float wq = 0.f;
-    if (q > 0) {
-      const int v = order[q], pv = parent[v];
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float df = __fsub_rn(embed[(size_t)v * D + d], embed[(size_t)pv * D + d]);
-        s = __fmaf_rn(df, df, s);
-      }
-      wq = expf(-__fmul_rn(s, inv));
-    }
-    w[q] = wq;
-  }
-}
-
-// ---- K3 / K4: the two passes ---------------------------------------------
-
-struct Tree {
-  const int* order;
-  const int* parent;
-  const int* ppos;
-  const int* cptr;
-  const int* level;
-  const int* nlev;
-  const float* w;
-};
-
-__device__ Tree image_tree(const Tree& all, int b, int V) {
-  Tree t;
-  t.order = all.order + (size_t)b * V;
-  t.parent = all.parent + (size_t)b * V;
-  t.ppos = all.ppos + (size_t)b * V;
-  t.cptr = all.cptr + (size_t)b * (V + 1);
-  t.level = all.level + (size_t)b * (V + 1);
-  t.nlev = all.nlev + b;
-  t.w = all.w + (size_t)b * V;
-  return t;
-}
-
-constexpr int PAD = 256;           // the scratch's positions an image: a multiple of PAD
-constexpr int TILE = 256, TILES = 8;             // the main path's window: 2,048 positions
-constexpr int SMALL_TILE = 16, SMALL_TILES = 4;  // a 64-position window, for the tests
-constexpr int WARPS = 4;           // consumer warps (1, 2 and 4 measured: PERF.md section 6)
-constexpr int CONSUMERS = WARPS * 32;
-constexpr int PAR_THREADS = 256;   // the fully parallel kernels
-constexpr int LEVEL_CAP = 8192;    // level offsets kept in shared memory (else streamed)
-
-__host__ __device__ __forceinline__ int padded(int V) { return (V + PAD - 1) / PAD * PAD; }
+// ---- Hopper helpers ------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -470,6 +286,840 @@ __device__ __forceinline__ unsigned long long global_ns() {
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
+
+int par_blocks(int B, int V) {
+  const long long n = ((long long)B * V + PAR_THREADS - 1) / PAR_THREADS;
+  return (int)(n < 65535 * 8 ? n : 65535 * 8);
+}
+
+// ---- K1: Boruvka MST selection, tile-local then contracted ----------------
+
+constexpr int MST_TILE = 32;            // the main path's tile (64 measured: PERF.md section 6)
+constexpr int SMALL_MST_TILE = 8;       // the tests' tile, with a small contracted store
+constexpr int P1_ROUND_CAP = 64;        // phase 1 may stop after any round: phase 2 finishes
+constexpr int CROSS_THREADS = 256;
+constexpr int P2_THREADS = 1024;
+constexpr int P2_SMEM = 200 * 1024;     // the contracted store of one image in shared memory
+constexpr int SMALL_P2_SMEM = 1536;     // the tests': most images start on device memory
+constexpr uint32_t EMPTY_PAIR = 0xffffffffu;
+constexpr int MST_COUNTS = 5;           // counts= columns
+constexpr int MST_STAMPS = 4;           // stamps= columns
+
+constexpr uint32_t NO_BITS = 0xffffffffu;  // no edge: above every weight's bits (a NaN's)
+
+__device__ __forceinline__ unsigned long long edge_key(const float* w, int e) {
+  return ((unsigned long long)__float_as_uint(w[e]) << 32) | (unsigned)e;
+}
+
+// The indices of vertex (i, j)'s edges right, left, down, up; -1 where the
+// grid has none.
+__device__ __forceinline__ void tile_edges(const Grid& g, int i, int j, int (&idx)[4]) {
+  const int row = g.NV + i * (g.W - 1), v = i * g.W + j;
+  idx[0] = j + 1 < g.W ? row + j : -1;
+  idx[1] = j > 0 ? row + j - 1 : -1;
+  idx[2] = i + 1 < g.H ? v : -1;
+  idx[3] = i > 0 ? v - g.W : -1;
+}
+
+// The least key of each run of lanes with the same label, on the run's last
+// lane (other lanes get NO_EDGE): a segmented min-scan over the warp. Every
+// lane of the warp calls it.
+__device__ __forceinline__ unsigned long long run_min(long long label, unsigned long long key) {
+  const int lane = threadIdx.x & 31;
+  const long long prev = __shfl_up_sync(0xffffffffu, label, 1);
+  int head = lane == 0 || prev != label;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned long long k = __shfl_up_sync(0xffffffffu, key, o);
+    const int h = __shfl_up_sync(0xffffffffu, head, o);
+    if (lane >= o && !head) {
+      key = k < key ? k : key;
+      head = h;
+    }
+  }
+  const long long nxt = __shfl_down_sync(0xffffffffu, label, 1);
+  return lane == 31 || nxt != label ? key : NO_EDGE;
+}
+
+template <int T>
+struct TileShape {
+  static constexpr int N = T * T;                 // local vertices, row stride T
+  static constexpr int VPT = T == MST_TILE ? 1 : 2;  // vertices a thread
+  static constexpr int THREADS = N / VPT;
+  // two blocks of a vertex a thread on an SM: at most 32 registers a thread
+  static constexpr int MIN_BLOCKS = VPT == 1 ? 2 : 1;
+  static constexpr int LOG2N = T == MST_TILE ? 10 : 6;
+  static_assert((1 << LOG2N) == N, "tiles of 8 or 32");
+  // best (in the rounds its halves: the least keys' weight bits, then
+  // their indices; after them the dedup table's keys), comp, hook (then the
+  // roots' ranks), the dedup table's pairs, the selected right / down edges
+  static constexpr size_t SMEM = (size_t)N * (8 + 4 + 4 + 4 + 1 + 1);
+};
+
+// Phase 1: one block a tile of T x T vertices of one image (blockIdx.y).
+// Boruvka rounds in shared memory: each component takes its least edge over
+// all edges at its vertices, the tile's own and those that leave it; one
+// whose least edge is the tile's own hooks across it (the edge is the MST's,
+// by the cut property), one whose least edge leaves the tile waits (others
+// may still hook into it); rounds run until no component hooks. Then it
+// writes the selection of the edges it owns (those leaving its vertices
+// right and down; one that leaves the tile is 0 here), each vertex's
+// component as a dense label of the image, and each pair of its components
+// that its own edges join, once, with the least key of those edges
+// (a hash table in shared memory; a pair it cannot place goes out as is).
+template <int T>
+__global__ void __launch_bounds__(TileShape<T>::THREADS, TileShape<T>::MIN_BLOCKS)
+mst_tile_kernel(const float* __restrict__ weights, Grid g, int tiles_w, unsigned char* sel_all,
+                int* lab_all, unsigned long long* key_all, int2* uv_all, int* ncomp, int* nedge,
+                int* counts, unsigned long long* stamps) {
+  using S = TileShape<T>;
+  constexpr int N = S::N, VPT = S::VPT, NT = S::THREADS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int scratch[32];
+  __shared__ int base_s[2];
+  unsigned long long* best = reinterpret_cast<unsigned long long*>(smem);
+  int* comp = reinterpret_cast<int*>(best + N);
+  int* hook = comp + N;
+  uint32_t* tpair = reinterpret_cast<uint32_t*>(hook + N);
+  unsigned char* sel_r = reinterpret_cast<unsigned char*>(tpair + N);
+  unsigned char* sel_d = sel_r + N;
+
+  const int tid = threadIdx.x, b = blockIdx.y;
+  const int ti = blockIdx.x / tiles_w, tj = blockIdx.x - ti * tiles_w;
+  const int r0 = ti * T, c0 = tj * T;
+  const int th = min(T, g.H - r0), tw = min(T, g.W - c0);
+  const float* __restrict__ w = weights + (size_t)b * g.E;
+  if (stamps && tid == 0) atomicMax(&stamps[b * MST_STAMPS], ~global_ns());  // the least start
+
+  // each vertex's four weights' bits (right, left, down, up; NO_BITS where
+  // the grid has no edge) stay in registers; a key's index comes from the
+  // vertex's place
+  uint32_t wb[VPT][4];
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int l = tid + k * NT, li = l / T, lj = l % T;
+    const bool valid = li < th && lj < tw;
+    int idx[4];
+    tile_edges(g, r0 + li, c0 + lj, idx);
+#pragma unroll
+    for (int d = 0; d < 4; ++d)
+      wb[k][d] = valid && idx[d] >= 0 ? __float_as_uint(w[idx[d]]) : NO_BITS;
+    comp[l] = valid ? l : -1;
+    best[l] = NO_EDGE;
+    sel_r[l] = sel_d[l] = 0;
+  }
+  __syncthreads();
+
+  unsigned* best_hi = reinterpret_cast<unsigned*>(best);
+  unsigned* best_lo = best_hi + N;
+  const auto least = [&](int c) { return (unsigned long long)best_hi[c] << 32 | best_lo[c]; };
+  unsigned long long mins[VPT];  // each vertex's least candidate key
+  int dirs[VPT];                 // and its direction (right, left, down, up)
+  int rounds = 0;
+  for (int round = 0; round < P1_ROUND_CAP; ++round) {
+    // each component's least key over its vertices' least candidates, by
+    // two 32-bit atomicMins (the weight bits, then the index among the keys
+    // with the least bits), each skipped where a read shows it cannot lower
+    // the value (both faster than one 64-bit atomicMin: PERF.md section 6)
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int l = tid + k * NT, li = l / T, lj = l % T;
+      const int c = comp[l];
+      unsigned long long m = NO_EDGE;
+      dirs[k] = 0;
+      if (c >= 0) {
+        const bool inside[4] = {lj + 1 < tw, lj > 0, li + 1 < th, li > 0};
+        const int nb[4] = {l + 1, l - 1, l + T, l - T};
+        int idx[4];
+        tile_edges(g, r0 + li, c0 + lj, idx);
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          if (wb[k][d] == NO_BITS) continue;
+          const unsigned long long kd = (unsigned long long)wb[k][d] << 32 | (unsigned)idx[d];
+          if (kd < m && (!inside[d] || comp[nb[d]] != c)) {
+            m = kd;
+            dirs[k] = d;
+          }
+        }
+        if (c == l) hook[l] = l;  // a root stays one unless it hooks below
+      }
+      mins[k] = m;
+      if (m != NO_EDGE && (unsigned)(m >> 32) < best_hi[c])
+        atomicMin(&best_hi[c], (unsigned)(m >> 32));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int c = comp[tid + k * NT];
+      const unsigned long long m = mins[k];
+      if (m != NO_EDGE && (unsigned)(m >> 32) == best_hi[c] && (unsigned)m < best_lo[c])
+        atomicMin(&best_lo[c], (unsigned)m);
+    }
+    __syncthreads();
+    // the one vertex that holds its component's least key hooks the
+    // component across that edge when the edge is the tile's own, and
+    // leaves it waiting when the edge leaves the tile
+    int hooked = 0;
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int l = tid + k * NT, li = l / T, lj = l % T, d = dirs[k];
+      const unsigned long long m = mins[k];
+      if (m == NO_EDGE) continue;
+      const int c = comp[l];
+      const bool inside = d == 0 ? lj + 1 < tw : d == 1 ? lj > 0 : d == 2 ? li + 1 < th : li > 0;
+      if (m != least(c) || !inside) continue;
+      const int other = comp[d == 0 ? l + 1 : d == 1 ? l - 1 : d == 2 ? l + T : l - T];
+      // a mutual pair shares the edge: the smaller id stays root
+      hook[c] = (least(other) == m && c < other) ? c : other;
+      // the edge's owner is its up / left end
+      if (d < 2)
+        sel_r[d == 0 ? l : l - 1] = 1;
+      else
+        sel_d[d == 2 ? l : l - T] = 1;
+      hooked = 1;
+    }
+    if (!__syncthreads_or(hooked)) break;
+    ++rounds;
+    // pointer jumping over the roots until every hook is a final root
+    for (;;) {
+      int changed = 0;
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        const int l = tid + k * NT;
+        if (comp[l] != l) continue;
+        const int h = hook[l], hh = hook[h];
+        if (hh != h) {
+          hook[l] = hh;
+          changed = 1;
+        }
+      }
+      if (!__syncthreads_or(changed)) break;
+    }
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int l = tid + k * NT;
+      const int c = comp[l];
+      if (c >= 0) comp[l] = hook[c];
+      best[l] = NO_EDGE;
+    }
+    __syncthreads();
+  }
+
+  // dense labels: the image's components numbered by tile, ranks in hook
+  int nroot = 0;
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) nroot += comp[tid + k * NT] == tid + k * NT;
+  int total;
+  int rank = block_exclusive_scan(nroot, &total, scratch);
+  if (tid == 0) base_s[0] = atomicAdd(&ncomp[b], total);
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int l = tid + k * NT;
+    if (comp[l] == l) hook[l] = rank++;
+    tpair[l] = EMPTY_PAIR;
+    best[l] = NO_EDGE;  // the table's keys (the last round left its minima)
+  }
+  __syncthreads();
+  const int cbase = base_s[0];
+  unsigned char* sel = sel_all + (size_t)b * g.E;
+  unsigned long long* lkey = key_all + (size_t)b * g.E;
+  int2* luv = uv_all + (size_t)b * g.E;
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int l = tid + k * NT, li = l / T, lj = l % T;
+    const int c = comp[l];
+    if (c < 0) continue;
+    const int gi = r0 + li, gj = c0 + lj, gv = gi * g.W + gj;
+    const int rc = hook[c];
+    lab_all[(size_t)b * g.V + gv] = cbase + rc;
+    if (gi + 1 < g.H) sel[gv] = li + 1 < th ? sel_d[l] : 0;
+    if (gj + 1 < g.W) sel[g.NV + gi * (g.W - 1) + gj] = lj + 1 < tw ? sel_r[l] : 0;
+    // this vertex's own edges inside the tile that join two components
+#pragma unroll
+    for (int d = 0; d < 3; d += 2) {  // right, down
+      if (d == 0 ? lj + 1 >= tw : li + 1 >= th) continue;
+      const int cn = comp[d == 0 ? l + 1 : l + T];
+      if (cn == c) continue;
+      const int rn = hook[cn];
+      const uint32_t pair = (uint32_t)min(rc, rn) << 16 | (uint32_t)max(rc, rn);
+      int idx[4];
+      tile_edges(g, gi, gj, idx);
+      const unsigned long long kd = (unsigned long long)wb[k][d] << 32 | (unsigned)idx[d];
+      uint32_t h = (pair * 2654435761u) >> (32 - S::LOG2N);
+      bool placed = false;
+      for (int probe = 0; probe < N && !placed; ++probe, h = (h + 1) & (N - 1)) {
+        const uint32_t old = atomicCAS(&tpair[h], EMPTY_PAIR, pair);
+        if (old == EMPTY_PAIR || old == pair) {
+          atomicMin(&best[h], kd);  // best is NO_EDGE after the last round
+          placed = true;
+        }
+      }
+      if (!placed) {
+        const int pos = atomicAdd(&nedge[b], 1);
+        lkey[pos] = kd;
+        luv[pos] = make_int2(cbase + rc, cbase + rn);
+      }
+    }
+  }
+  __syncthreads();
+  int npair = 0;
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) npair += tpair[tid + k * NT] != EMPTY_PAIR;
+  int pos = block_exclusive_scan(npair, &total, scratch);
+  if (tid == 0) base_s[1] = total ? atomicAdd(&nedge[b], total) : 0;
+  __syncthreads();
+  pos += base_s[1];
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int s = tid + k * NT;
+    const uint32_t pair = tpair[s];
+    if (pair == EMPTY_PAIR) continue;
+    lkey[pos] = best[s];
+    luv[pos] = make_int2(cbase + (int)(pair >> 16), cbase + (int)(pair & 0xffffu));
+    ++pos;
+  }
+  if (tid == 0) {
+    if (counts) atomicMax(&counts[b * MST_COUNTS], rounds);
+    if (stamps) atomicMax(&stamps[b * MST_STAMPS + 1], global_ns());
+  }
+}
+
+// Phase 1b: the edges between tiles (blockIdx.y the image), with their
+// endpoints' labels; a run of a warp's lanes (consecutive edges along one
+// tile border) that joins the same two components goes out once, with the
+// least key of the run.
+__global__ void __launch_bounds__(CROSS_THREADS)
+mst_cross_kernel(const float* __restrict__ weights, Grid g, int T, const int* __restrict__ lab_all,
+                 unsigned long long* key_all, int2* uv_all, int* nedge) {
+  const int b = blockIdx.y, lane = threadIdx.x & 31;
+  const int nrow = (g.H - 1) / T * g.W;  // edges down from the tile rows' last rows, W a border
+  const int n = nrow + (g.W - 1) / T * g.H;
+  const float* __restrict__ w = weights + (size_t)b * g.E;
+  const int* __restrict__ lab = lab_all + (size_t)b * g.V;
+  for (int x0 = blockIdx.x * blockDim.x; x0 < n; x0 += gridDim.x * blockDim.x) {
+    const int x = x0 + threadIdx.x;
+    int lu = 0, lv = 0;
+    unsigned long long key = NO_EDGE;
+    long long pair = -1 - lane;  // a lane past the end is a run of its own, with no key
+    if (x < n) {
+      int u, v, e;
+      if (x < nrow) {  // row i = kT - 1, along j
+        const int k = x / g.W, j = x - k * g.W;
+        u = ((k + 1) * T - 1) * g.W + j;
+        v = u + g.W;
+        e = u;
+      } else {  // column j = kT - 1, along i
+        const int x2 = x - nrow, k = x2 / g.H, i = x2 - k * g.H, j = (k + 1) * T - 1;
+        u = i * g.W + j;
+        v = u + 1;
+        e = g.NV + i * (g.W - 1) + j;
+      }
+      lu = lab[u];
+      lv = lab[v];
+      key = edge_key(w, e);
+      pair = (long long)min(lu, lv) << 32 | max(lu, lv);  // labels are below 2^31
+    }
+    key = run_min(pair, key);
+    const bool out = key != NO_EDGE;
+    const unsigned outs = __ballot_sync(0xffffffffu, out);
+    int base = 0;
+    if (lane == 0 && outs) base = atomicAdd(&nedge[b], __popc(outs));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (out) {
+      const int p = base + __popc(outs & ((1u << lane) - 1));
+      key_all[(size_t)b * g.E + p] = key;
+      uv_all[(size_t)b * g.E + p] = make_int2(lu, lv);
+    }
+  }
+}
+
+// The contracted graph of one image: edges (key, label u, label v) and, per
+// component label, its least edge's key and its hook. In shared memory the
+// labels are 16 bits a side; on device memory int2.
+struct SmemGraph {
+  unsigned long long* key;
+  uint32_t* uv;
+  unsigned long long* best;
+  int* hook;
+  __device__ void get(int i, unsigned long long& k, int& u, int& v) const {
+    k = key[i];
+    const uint32_t p = uv[i];
+    u = (int)(p & 0xffffu);
+    v = (int)(p >> 16);
+  }
+  __device__ void put(int i, unsigned long long k, int u, int v) {
+    key[i] = k;
+    uv[i] = (uint32_t)u | (uint32_t)v << 16;
+  }
+};
+
+struct GlobalGraph {
+  unsigned long long* key;
+  int2* uv;
+  unsigned long long* best;
+  int* hook;
+  __device__ void get(int i, unsigned long long& k, int& u, int& v) const {
+    k = key[i];
+    const int2 p = uv[i];
+    u = p.x;
+    v = p.y;
+  }
+  __device__ void put(int i, unsigned long long k, int u, int v) {
+    key[i] = k;
+    uv[i] = make_int2(u, v);
+  }
+};
+
+// one store of E edges and C components fits CAP bytes of shared memory
+template <int CAP>
+__device__ __forceinline__ bool fits_smem(int E, int C) {
+  return C <= 65536 && 12ll * E + 12ll * C <= CAP;
+}
+
+// One Boruvka round over the graph's E edges (all of the block's threads):
+// each root component's least edge, its hook (a mutual pair's smaller
+// label stays root), the selected edges marked in sel, pointer jumping, and
+// the edges that still join two components kept in place, relabelled to
+// their roots (a stable compaction, one block scan a chunk). Returns the
+// edges left.
+template <class G>
+__device__ int contract_round(G& g, int E, int C, unsigned char* sel, int* scratch) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int c = tid; c < C; c += nt)
+    if (g.hook[c] == c) g.best[c] = NO_EDGE;
+  __syncthreads();
+  for (int i = tid; i < E; i += nt) {
+    unsigned long long k;
+    int u, v;
+    g.get(i, k, u, v);
+    atomicMin(&g.best[u], k);
+    atomicMin(&g.best[v], k);
+  }
+  __syncthreads();
+  for (int i = tid; i < E; i += nt) {
+    unsigned long long k;
+    int u, v;
+    g.get(i, k, u, v);
+    const unsigned long long bu = g.best[u], bv = g.best[v];
+    if (k == bu) g.hook[u] = (bv == k && u < v) ? u : v;
+    if (k == bv) g.hook[v] = (bu == k && v < u) ? v : u;
+    if (k == bu || k == bv) sel[(unsigned)k] = 1;
+  }
+  __syncthreads();
+  for (;;) {
+    int changed = 0;
+    for (int c = tid; c < C; c += nt) {
+      const int h = g.hook[c], hh = g.hook[h];
+      if (hh != h) {
+        g.hook[c] = hh;
+        changed = 1;
+      }
+    }
+    if (!__syncthreads_or(changed)) break;
+  }
+  int out = 0;
+  for (int base = 0; base < E; base += nt) {
+    const int i = base + tid;
+    unsigned long long k = 0;
+    int u = 0, v = 0, keep = 0;
+    if (i < E) {
+      g.get(i, k, u, v);
+      u = g.hook[u];
+      v = g.hook[v];
+      keep = u != v;
+    }
+    int total;
+    const int off = block_exclusive_scan(keep, &total, scratch);  // every read of the chunk is done
+    if (keep) g.put(out + off, k, u, v);
+    out += total;
+  }
+  __syncthreads();
+  return out;
+}
+
+// Phase 2: the contracted graph of one image a block (blockIdx.x): the
+// edges phase 1 and 1b left (lists of key_all / uv_all, nedge of them) over
+// the ncomp components, in Boruvka rounds that drop each round the edges
+// that have come to lie inside one component, until none is left; each
+// selected edge keeps its index, the key's low 32 bits. A store that fits
+// CAP bytes runs in shared memory; else the rounds run on device memory
+// (best_all, hook_all; the list in place) until what is left fits, and the
+// roots left are numbered anew as it moves into shared memory.
+template <int CAP>
+__global__ void __launch_bounds__(P2_THREADS)
+mst_contract_kernel(Grid gr, unsigned long long* key_all, int2* uv_all, const int* ncomp,
+                    const int* nedge, unsigned long long* best_all, int* hook_all,
+                    unsigned char* sel_all, int* counts, unsigned long long* stamps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int scratch[32];
+  const int tid = threadIdx.x, nt = blockDim.x, b = blockIdx.x;
+  if (stamps && tid == 0) {
+    stamps[b * MST_STAMPS] = ~stamps[b * MST_STAMPS];
+    stamps[b * MST_STAMPS + 2] = global_ns();
+  }
+  int E = nedge[b], C = ncomp[b];
+  if (counts && tid == 0) {
+    counts[b * MST_COUNTS + 1] = C;
+    counts[b * MST_COUNTS + 2] = E;
+  }
+  unsigned char* sel = sel_all + (size_t)b * gr.E;
+  GlobalGraph dg{key_all + (size_t)b * gr.E, uv_all + (size_t)b * gr.E, best_all + (size_t)b * gr.V,
+                 hook_all + (size_t)b * gr.V};
+  int rounds = 0, dev_rounds = 0;
+  const int* rank = nullptr;  // new labels of the roots, when the graph moved from device memory
+  if (!fits_smem<CAP>(E, C)) {
+    for (int c = tid; c < C; c += nt) dg.hook[c] = c;
+    __syncthreads();
+    for (;;) {
+      E = contract_round(dg, E, C, sel, scratch);
+      ++rounds;
+      ++dev_rounds;
+      if (E == 0) break;
+      int roots = 0;
+      for (int c = tid; c < C; c += nt) roots += dg.hook[c] == c;
+      int R;
+      block_exclusive_scan(roots, &R, scratch);
+      if (!fits_smem<CAP>(E, R)) continue;
+      // number the roots in label order; the ranks go where best was
+      int* r = reinterpret_cast<int*>(dg.best);
+      int base = 0;
+      for (int c0 = 0; c0 < C; c0 += nt) {
+        const int c = c0 + tid;
+        const int root = c < C && dg.hook[c] == c;
+        int total;
+        const int off = block_exclusive_scan(root, &total, scratch);
+        if (root) r[c] = base + off;
+        base += total;
+      }
+      __syncthreads();
+      rank = r;
+      C = R;
+      break;
+    }
+  }
+  if (E > 0) {
+    SmemGraph sg;
+    sg.key = reinterpret_cast<unsigned long long*>(smem);
+    sg.best = sg.key + E;
+    sg.uv = reinterpret_cast<uint32_t*>(sg.best + C);
+    sg.hook = reinterpret_cast<int*>(sg.uv + E);
+    for (int i = tid; i < E; i += nt) {
+      unsigned long long k;
+      int u, v;
+      dg.get(i, k, u, v);
+      if (rank) {
+        u = rank[u];
+        v = rank[v];
+      }
+      sg.put(i, k, u, v);
+    }
+    for (int c = tid; c < C; c += nt) sg.hook[c] = c;
+    __syncthreads();
+    while (E > 0) {
+      E = contract_round(sg, E, C, sel, scratch);
+      ++rounds;
+    }
+  }
+  if (tid == 0) {
+    if (counts) {
+      counts[b * MST_COUNTS + 3] = rounds;
+      counts[b * MST_COUNTS + 4] = dev_rounds;
+    }
+    if (stamps) stamps[b * MST_STAMPS + 3] = global_ns();
+  }
+}
+
+template <int T, int CAP>
+cudaError_t mst_launch(const float* weights, unsigned char* sel, int* lab,
+                       unsigned long long* keys, int2* uv, unsigned long long* best, int* hook,
+                       int* ncomp, int* nedge, int* counts, unsigned long long* stamps, int n,
+                       const Grid& g, cudaStream_t s) {
+  using S = TileShape<T>;
+  const int tiles_w = (g.W + T - 1) / T, tiles = (g.H + T - 1) / T * tiles_w;
+  cudaError_t err = cudaFuncSetAttribute(mst_tile_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
+  if (err != cudaSuccess) return err;
+  mst_tile_kernel<T><<<dim3(tiles, n), S::THREADS, S::SMEM, s>>>(
+      weights, g, tiles_w, sel, lab, keys, uv, ncomp, nedge, counts, stamps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int cross = (g.H - 1) / T * g.W + (g.W - 1) / T * g.H;
+  if (cross > 0) {
+    const int blocks = min((cross + CROSS_THREADS - 1) / CROSS_THREADS, 64);
+    mst_cross_kernel<<<dim3(blocks, n), CROSS_THREADS, 0, s>>>(weights, g, T, lab, keys, uv, nedge);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  err = cudaFuncSetAttribute(mst_contract_kernel<CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             CAP);
+  if (err != cudaSuccess) return err;
+  mst_contract_kernel<CAP><<<n, P2_THREADS, CAP, s>>>(g, keys, uv, ncomp, nedge, best, hook, sel,
+                                                      counts, stamps);
+  return cudaGetLastError();
+}
+
+// ---- K2: BFS rooting at vertex 0 -----------------------------------------
+
+constexpr int RING = 2048;          // queue entries held in shared memory: a level and the next
+constexpr int SMALL_RING = 16;      // the tests': a level wider than it runs on device memory
+constexpr int LEVEL_BUF = 4096;     // level offsets held in shared memory, flushed when full
+constexpr int SMALL_LEVEL_BUF = 8;
+constexpr int MASK_CAP = 160 * 1024;  // an image's masks in shared memory up to 327,680 vertices
+constexpr int BFS_WARPS = 4;        // the BFS block's (1, 2 and 4 measured: PERF.md section 6)
+constexpr int BFS_STAMPS = 2;       // stamps= columns
+constexpr int MASK_THREADS = 256;
+
+// Bytes of an image's packed masks: two vertices a byte, padded to 16.
+__host__ __device__ __forceinline__ int mask_bytes(int V) { return ((V + 1) / 2 + 15) / 16 * 16; }
+
+// Vertex u's selected edges in root_tree's child order: bit 0 right, 1
+// left, 2 down, 3 up.
+__device__ __forceinline__ int vertex_mask(const unsigned char* __restrict__ sel, const Grid& g,
+                                           int u) {
+  const int i = u / g.W, j = u - i * g.W, row = g.NV + i * (g.W - 1);
+  return (j + 1 < g.W && sel[row + j]) | (j > 0 && sel[row + j - 1]) << 1 |
+         (i + 1 < g.H && sel[u]) << 2 | (i > 0 && sel[u - g.W]) << 3;
+}
+
+// K2a: every image's masks, two vertices a byte (the even one low), on all SMs.
+__global__ void __launch_bounds__(MASK_THREADS)
+tree_mask_kernel(const unsigned char* __restrict__ sel_all, Grid g, int n, int MB,
+                 unsigned char* masks_all) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < (size_t)n * MB;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int b = (int)(i / MB), t = (int)(i - (size_t)b * MB);
+    const unsigned char* sel = sel_all + (size_t)b * g.E;
+    int m = 0;
+    if (2 * t < g.V) m = vertex_mask(sel, g, 2 * t);
+    if (2 * t + 1 < g.V) m |= vertex_mask(sel, g, 2 * t + 1) << 4;
+    masks_all[i] = (unsigned char)m;
+  }
+}
+
+// K2b: one block an image (blockIdx.x) of BFS_WARPS warps. A level's
+// vertices take their children from their masks less the bit toward their
+// parent, in bit order (right, left, down, up: root_tree's order); the next
+// level is contiguous in the queue, ordered by parent position. Three
+// ballots of the child counts' bits give each vertex its place in its warp,
+// and one combine of the warps' sums at a barrier its place in the level.
+// The current and next level's entries (vertex, direction to the parent)
+// are in a ring of RING_N in shared memory: position q in slot q % RING_N,
+// written while q is below the current level's start + RING_N (so it
+// overwrites nothing not yet read); a level not written wholly there reads
+// its vertices and their parents' from order and ppos, which this block
+// wrote before. The masks are copied into shared memory by one bulk copy
+// where mask_smem (else read from device memory). order, ppos and cptr go
+// out as each level's stores; the level offsets collect in shared memory
+// (LBUF, flushed when full and at the end).
+template <int RING_N, int LBUF, bool MASK_SMEM>
+__device__ __forceinline__ void bfs_levels(const unsigned char* __restrict__ mk, const Grid& g,
+                                           int* ring, int* lbuf, int (*wsum)[BFS_WARPS], int* order,
+                                           int* ppos, int* cptr, int* level, int* nlev_out,
+                                           unsigned long long* stamp) {
+  constexpr int NT = BFS_WARPS * 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1;
+  const int V = g.V, W = g.W;
+  const int delta[4] = {1, -1, W, -W};
+  int s = 0, e = 1, nlev = 0, lbase = 0, par = 0;
+  bool ring_ok = true;
+  for (;;) {
+    int next = e;
+    for (int base = s; base < e; base += NT) {
+      const int p = base + tid;
+      // the position's vertex and the bits to keep (all but the parent's)
+      int u = 0, m = 0;
+      if (ring_ok) {
+        const int ent = ring[p & (RING_N - 1)];
+        if (p < e) {
+          u = ent >> 2;
+          m = p > 0 ? 15 & ~(1 << (ent & 3)) : 15;
+        }
+      } else if (p < e) {
+        u = order[p];
+        const int d = order[ppos[p]] - u;
+        m = 15 & ~(1 << (d == W ? 2 : d == -W ? 3 : d == 1 ? 0 : 1));
+      }
+      m &= (mk[u >> 1] >> ((u & 1) << 2)) & 15;
+      const int cnt = __popc(m);
+      const unsigned b0 = __ballot_sync(0xffffffffu, cnt & 1);
+      const unsigned b1 = __ballot_sync(0xffffffffu, cnt & 2);
+      const unsigned b2 = __ballot_sync(0xffffffffu, cnt & 4);
+      int off = __popc(b0 & below) + 2 * __popc(b1 & below) + 4 * __popc(b2 & below);
+      int total = __popc(b0) + 2 * __popc(b1) + 4 * __popc(b2);
+      if (lane == 0) wsum[par][warp] = total;
+      __syncthreads();
+      total = 0;
+#pragma unroll
+      for (int k = 0; k < BFS_WARPS; ++k) {
+        if (k == warp) off += total;
+        total += wsum[par][k];
+      }
+      par ^= 1;
+      if (p < e) {
+        int q = next + off;
+        cptr[p] = q;
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          if (!((m >> d) & 1)) continue;
+          const int c = u + delta[d];
+          if (q < V) {  // q >= V only if sel holds a cycle
+            order[q] = c;
+            ppos[q] = p;
+            if (q < s + RING_N) ring[q & (RING_N - 1)] = c << 2 | (d ^ 1);
+          }
+          ++q;
+        }
+      }
+      next += total;
+    }
+    ++nlev;
+    if (next == e) break;  // the level just read had no children
+    if (next > V) {        // sel holds a cycle: no tree (n_levels 0)
+      nlev = 0;
+      break;
+    }
+    if (tid == 0) lbuf[nlev + 1 - lbase] = next;
+    if (nlev + 1 - lbase == LBUF - 1) {  // full: flush all but the last offset
+      __syncthreads();
+      for (int i = tid; i < LBUF - 1; i += NT) level[lbase + i] = lbuf[i];
+      __syncthreads();
+      if (tid == 0) lbuf[0] = lbuf[LBUF - 1];
+      lbase += LBUF - 1;
+    }
+    ring_ok = next <= s + RING_N;  // the new level [e, next) went wholly to the ring
+    s = e;
+    e = next;
+    __syncthreads();  // the new level's entries are visible
+  }
+  __syncthreads();
+  if (stamp && tid == 0) *stamp = global_ns();
+  for (int i = tid; i <= max(nlev, 1) - lbase; i += NT) level[lbase + i] = lbuf[i];
+  if (tid == 0) *nlev_out = nlev;
+}
+
+template <int RING_N, int LBUF>
+__global__ void __launch_bounds__(BFS_WARPS * 32)
+tree_bfs_kernel(const unsigned char* __restrict__ masks_all, int MB, bool mask_smem, Grid g,
+                int* order_all, int* ppos_all, int* cptr_all, int* level_all, int* nlev_all,
+                unsigned long long* stamps) {
+  extern __shared__ __align__(16) unsigned char smask[];
+  __shared__ int ring[RING_N];
+  __shared__ int lbuf[LBUF];
+  __shared__ int wsum[2][BFS_WARPS];
+  __shared__ __align__(8) uint64_t bar;
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const unsigned char* gmask = masks_all + (size_t)b * MB;
+  int* order = order_all + (size_t)b * g.V;
+  int* ppos = ppos_all + (size_t)b * g.V;
+  int* cptr = cptr_all + (size_t)b * (g.V + 1);
+  if (mask_smem) {
+    if (tid == 0) {
+      mbar_init(&bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+      mbar_expect_tx(&bar, MB);
+      bulk_load(smask, gmask, MB, &bar);
+    }
+    mbar_wait(&bar, 0);
+  }
+  if (tid == 0) {
+    order[0] = 0;
+    ppos[0] = 0;
+    ring[0] = 0;  // vertex 0; the root has no parent bit to clear
+    lbuf[0] = 0;
+    lbuf[1] = 1;
+    cptr[g.V] = g.V;
+    if (stamps) stamps[b * BFS_STAMPS] = global_ns();
+  }
+  __syncthreads();
+  int* level = level_all + (size_t)b * (g.V + 1);
+  unsigned long long* stamp = stamps ? stamps + b * BFS_STAMPS + 1 : nullptr;
+  if (mask_smem)
+    bfs_levels<RING_N, LBUF, true>(smask, g, ring, lbuf, wsum, order, ppos, cptr, level,
+                                   nlev_all + b, stamp);
+  else
+    bfs_levels<RING_N, LBUF, false>(gmask, g, ring, lbuf, wsum, order, ppos, cptr, level,
+                                    nlev_all + b, stamp);
+}
+
+// K2c: parents by vertex and the filter weights in queue order, on all SMs:
+// parent(order[q]) = order[ppos[q]], w = exp(-||embed(v) - embed(parent)||^2
+// * inv_sigma), 1/sigma on the first n_low images and 1 on the rest, the
+// root's 0.
+__global__ void __launch_bounds__(PAR_THREADS)
+root_weights_kernel(const float* __restrict__ embed_all, int D, Grid g, int n, int n_low,
+                    float inv_sigma_low, const int* __restrict__ order_all,
+                    const int* __restrict__ ppos_all, int* parent_all, float* w_all) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < (size_t)n * g.V;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int b = (int)(i / g.V), q = (int)(i - (size_t)b * g.V);
+    const int v = order_all[i], pp = ppos_all[i];
+    float wq = 0.f;
+    // a position the BFS did not reach (sel not a tree) holds no vertex
+    if ((unsigned)v < (unsigned)g.V && (unsigned)pp < (unsigned)g.V) {
+      const int pv = order_all[(size_t)b * g.V + pp];
+      parent_all[(size_t)b * g.V + v] = pv;  // the root's: order[0] = 0
+      if (q > 0 && (unsigned)pv < (unsigned)g.V) {
+        const float* embed = embed_all + (size_t)b * g.V * D;
+        const float inv = b < n_low ? inv_sigma_low : 1.f;
+        float s = 0.f;
+        for (int d = 0; d < D; ++d) {
+          const float df = __fsub_rn(embed[(size_t)v * D + d], embed[(size_t)pv * D + d]);
+          s = __fmaf_rn(df, df, s);
+        }
+        wq = expf(-__fmul_rn(s, inv));
+      }
+    }
+    w_all[i] = wq;
+  }
+}
+
+template <int RING_N, int LBUF>
+cudaError_t bfs_launch(const unsigned char* masks, int MB, bool mask_smem, const Grid& g, int n,
+                       int* order, int* ppos, int* cptr, int* level, int* nlev,
+                       unsigned long long* stamps, cudaStream_t s) {
+  auto kernel = tree_bfs_kernel<RING_N, LBUF>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         MASK_CAP);
+  if (err != cudaSuccess) return err;
+  kernel<<<n, BFS_WARPS * 32, mask_smem ? MB : 0, s>>>(masks, MB, mask_smem, g, order, ppos, cptr,
+                                                       level, nlev, stamps);
+  return cudaGetLastError();
+}
+
+// ---- K3 / K4: the two passes ---------------------------------------------
+
+struct Tree {
+  const int* order;
+  const int* parent;
+  const int* ppos;
+  const int* cptr;
+  const int* level;
+  const int* nlev;
+  const float* w;
+};
+
+__device__ Tree image_tree(const Tree& all, int b, int V) {
+  Tree t;
+  t.order = all.order + (size_t)b * V;
+  t.parent = all.parent + (size_t)b * V;
+  t.ppos = all.ppos + (size_t)b * V;
+  t.cptr = all.cptr + (size_t)b * (V + 1);
+  t.level = all.level + (size_t)b * (V + 1);
+  t.nlev = all.nlev + b;
+  t.w = all.w + (size_t)b * V;
+  return t;
+}
+
+constexpr int PAD = 256;           // the scratch's positions an image: a multiple of PAD
+constexpr int TILE = 256, TILES = 8;             // the main path's window: 2,048 positions
+constexpr int SMALL_TILE = 16, SMALL_TILES = 4;  // a 64-position window, for the tests
+constexpr int WARPS = 4;           // consumer warps (1, 2 and 4 measured: PERF.md section 6)
+constexpr int CONSUMERS = WARPS * 32;
+constexpr int LEVEL_CAP = 8192;    // level offsets kept in shared memory (else streamed)
+
+__host__ __device__ __forceinline__ int padded(int V) { return (V + PAD - 1) / PAD * PAD; }
 
 // level[k] for k = first, first + dir, ...: lane i of the warp holds
 // level[k + dir * i] and the next batch of 32 is in flight behind it; 0 past
@@ -1088,11 +1738,6 @@ Tree make_tree(const int* order, const int* parent, const int* ppos, const int* 
   return t;
 }
 
-int par_blocks(int B, int V) {
-  const long long n = ((long long)B * V + PAR_THREADS - 1) / PAR_THREADS;
-  return (int)(n < 65535 * 8 ? n : 65535 * 8);
-}
-
 template <int CH, class T, int TP, int NT>
 cudaError_t launch_passes(T* data, const int4* meta, const Tree& t, int B, int V, T* F,
                           unsigned long long* stamps, cudaStream_t s) {
@@ -1155,27 +1800,88 @@ int filter_bwd(const float* g, const float* y, const float* A, const float* F, c
 
 extern "C" {
 
-// K1. weights [N, E] fp32 >= 0 -> sel [N, E] bytes 0/1; scratch comp, hook
-// int32 [N, V] and best uint64 [N, V].
-int tree_mst(const float* weights, unsigned char* sel, int* comp, int* hook,
-             unsigned long long* best, int n, int H, int W, void* stream) {
+// K1. weights [N, E] fp32 >= 0 -> sel [N, E] bytes 0/1. Scratch: lab int32
+// [N, V], the contracted edges' keys uint64 [N, E] and labels int32
+// [N, E, 2], best uint64 [N, V], hook int32 [N, V], counters int32 [N, 2].
+// counts int32 [N, 5] (phase 1's rounds, then the components and edges it
+// left, phase 2's rounds and those on device memory) and stamps uint64
+// [N, 4] (%globaltimer: phase 1's first start and last end over the image's
+// tiles, phase 2's start and end), each or NULL. tile: MST_TILE, or
+// SMALL_MST_TILE (with a small contracted store).
+int tree_mst(const float* weights, unsigned char* sel, int* lab, unsigned long long* keys, int* uv,
+             unsigned long long* best, int* hook, int* counters, int* counts,
+             unsigned long long* stamps, int n, int H, int W, int tile, void* stream) {
   if (n < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  mst_kernel<<<n, MST_THREADS, 0, (cudaStream_t)stream>>>(weights, sel, comp, hook, best,
-                                                          make_grid(H, W));
+  cudaStream_t s = (cudaStream_t)stream;
+  const Grid g = make_grid(H, W);
+  cudaError_t err = cudaMemsetAsync(counters, 0, sizeof(int) * 2 * n, s);
+  if (err == cudaSuccess && counts)
+    err = cudaMemsetAsync(counts, 0, sizeof(int) * MST_COUNTS * n, s);
+  if (err == cudaSuccess && stamps)
+    err = cudaMemsetAsync(stamps, 0, sizeof(unsigned long long) * MST_STAMPS * n, s);
+  if (err != cudaSuccess) return (int)err;
+  int2* uv2 = reinterpret_cast<int2*>(uv);
+  int* ncomp = counters;
+  int* nedge = counters + n;
+  switch (tile) {
+    case MST_TILE:
+      return (int)mst_launch<MST_TILE, P2_SMEM>(weights, sel, lab, keys, uv2, best, hook, ncomp,
+                                                nedge, counts, stamps, n, g, s);
+    case SMALL_MST_TILE:
+      return (int)mst_launch<SMALL_MST_TILE, SMALL_P2_SMEM>(weights, sel, lab, keys, uv2, best,
+                                                            hook, ncomp, nedge, counts, stamps, n,
+                                                            g, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K2. sel [N, E]; embed [N, V, D] fp32; scratch masks [N, tree_root_mask_bytes(V)];
+// outputs order, parent, ppos, w [N, V], cptr, level [N, V + 1], nlev [N];
+// stamps uint64 [N, 2] (%globaltimer at the BFS's start and end) or NULL;
+// ring RING, or SMALL_RING (it reads the masks from device memory and
+// flushes the level offsets every few levels).
+int tree_root(const unsigned char* sel, const float* embed, int D, int n, int H, int W,
+              int n_low, float inv_sigma_low, unsigned char* masks, int* order, int* parent,
+              int* ppos, int* cptr, int* level, int* nlev, float* w, unsigned long long* stamps,
+              int ring, void* stream) {
+  if (n < 1 || H < 1 || W < 1 || D < 1 || D > MAX_EMBED) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const Grid g = make_grid(H, W);
+  const int MB = mask_bytes(g.V);
+  const int blocks = par_blocks(n, MB);
+  tree_mask_kernel<<<blocks, MASK_THREADS, 0, s>>>(sel, g, n, MB, masks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const bool mask_smem = MB <= MASK_CAP;
+  if (ring == RING)
+    err = bfs_launch<RING, LEVEL_BUF>(masks, MB, mask_smem, g, n, order, ppos, cptr, level, nlev,
+                                      stamps, s);
+  else if (ring == SMALL_RING)
+    err = bfs_launch<SMALL_RING, SMALL_LEVEL_BUF>(masks, MB, false, g, n, order, ppos, cptr, level,
+                                                  nlev, stamps, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  root_weights_kernel<<<par_blocks(n, g.V), PAR_THREADS, 0, s>>>(embed, D, g, n, n_low,
+                                                                 inv_sigma_low, order, ppos, parent,
+                                                                 w);
   return (int)cudaGetLastError();
 }
 
-// K2. sel [N, E]; embed [N, V, D] fp32; outputs order, parent, ppos, w
-// [N, V], cptr, level [N, V + 1], nlev [N].
-int tree_root(const unsigned char* sel, const float* embed, int D, int n, int H, int W,
-              int n_low, float inv_sigma_low, int* order, int* parent, int* ppos, int* cptr,
-              int* level, int* nlev, float* w, void* stream) {
-  if (n < 1 || H < 1 || W < 1 || D < 1 || D > MAX_EMBED) return (int)cudaErrorInvalidValue;
-  root_kernel<<<n, THREADS, 0, (cudaStream_t)stream>>>(sel, embed, D, make_grid(H, W), n_low,
-                                                       inv_sigma_low, order, parent, ppos, cptr,
-                                                       level, nlev, w);
-  return (int)cudaGetLastError();
+// K1's phase-1 kernel at the main path's tile as built: registers a thread
+// in out[0], local memory bytes a thread (spills) in out[1].
+int tree_mst_tile_attributes(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, mst_tile_kernel<MST_TILE>);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  return 0;
 }
+
+// Bytes an image of K2's mask scratch.
+int tree_root_mask_bytes(int V) { return mask_bytes(V); }
 
 // Positions an image of the filters' padded scratch (a multiple of 256).
 int tree_filter_padded(int V) { return padded(V); }

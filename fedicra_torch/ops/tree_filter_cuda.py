@@ -21,15 +21,20 @@ bound with ctypes):
   float64 and rounds dx and d embed once: on the last tree of a chain d
   embed is ~1e-3 of the terms it is the difference of.
 
-K3 and K4 are each a few CUDA kernels: a fully parallel gather into queue
-order, the two passes (one block an image streaming the queue through a
-window of shared memory, tiles in by TMA loads and out by TMA stores, its
-consumer warps meeting at a named barrier a level), and fully parallel
-kernels back to vertex order (K4: with the edge gradient and d embed). The
-passes' instance is chosen by ``window`` (positions held in shared memory:
-``WINDOW``, or ``SMALL_WINDOW``, which the tests use to make levels wider
-than the window); ``stamps`` takes each block's ``%globaltimer`` around its
-passes.
+Each is a few CUDA kernels. K1: Boruvka rounds in shared memory, one block
+a tile of the grid (a component hooks only across the tile's own edges),
+then, one block an image, rounds on the graph of the components the tiles
+leave, each round dropping the edges inside one component. K2: each vertex's selected edges
+as a 4-bit mask on all SMs, then the BFS one block an image with the masks
+and the current and next level in shared memory, then the weights on all
+SMs. K3 and K4: a fully parallel gather into queue order, the two passes
+(one block an image streaming the queue through a window of shared memory,
+tiles in by TMA loads and out by TMA stores, its consumer warps meeting at
+a named barrier a level), and fully parallel kernels back to vertex order
+(K4: with the edge gradient and d embed). Keywords pick an instance
+(``tile`` for K1, ``ring`` for K2, ``window`` for the passes:
+the tests' small ones run the paths the main ones take only on larger
+inputs), and ``stamps`` takes ``%globaltimer`` around a kernel's phases.
 
 Each wrapper takes its plain PyTorch twin for CPU tensors and launches its
 kernel for CUDA tensors (or raises; there is no fallback). ``TreeFilter`` is
@@ -56,6 +61,9 @@ MAX_CHILDREN = 4  # the root's; every other vertex has at most 3
 # the passes' windows built by csrc/tree_filter.cu (TILE x TILES, SMALL_TILE x SMALL_TILES)
 WINDOW = 2048
 SMALL_WINDOW = 64
+# K1's tiles and K2's BFS rings built by csrc/tree_filter.cu (the main path's, the tests')
+MST_TILE, SMALL_MST_TILE = 32, 8
+RING, SMALL_RING = 2048, 16
 
 launches = {"tree_mst": 0, "tree_root": 0, "tree_fwd": 0, "tree_bwd": 0}
 
@@ -314,14 +322,17 @@ def tree_filter_bwd_plain(g, y, A, F, tree: BFSTree, embed: Optional[torch.Tenso
 def _lib() -> ctypes.CDLL:
     lib = load_library("tree_filter")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tree_mst.argtypes = [p, p, p, p, p, i, i, i, p]
-    lib.tree_root.argtypes = [p, p, i, i, i, i, i, f, p, p, p, p, p, p, p, p]
+    lib.tree_mst.argtypes = [p] * 10 + [i] * 4 + [p]
+    lib.tree_root.argtypes = [p, p, i, i, i, i, i, f] + [p] * 9 + [i, p]
     lib.tree_filter_fwd.argtypes = [p] * 15 + [i] * 4 + [p]
     lib.tree_filter_bwd.argtypes = [p] * 12 + [i] + [p] * 7 + [i] * 4 + [p]
-    lib.tree_filter_padded.argtypes = [i]
+    for fn in (lib.tree_filter_padded, lib.tree_root_mask_bytes):
+        fn.argtypes = [i]
     lib.tree_filter_consumer_warps.argtypes = []
+    lib.tree_mst_tile_attributes.argtypes = [p]
     for fn in (lib.tree_mst, lib.tree_root, lib.tree_filter_fwd, lib.tree_filter_bwd,
-               lib.tree_filter_padded, lib.tree_filter_consumer_warps):
+               lib.tree_filter_padded, lib.tree_filter_consumer_warps, lib.tree_root_mask_bytes,
+               lib.tree_mst_tile_attributes):
         fn.restype = i
     return lib
 
@@ -356,28 +367,64 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def tree_mst_cuda(weights: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """K1: the MST of each grid, bool [N, E], from fp32 weights >= 0 [N, E]."""
+def _check_out(name: str, t: Optional[torch.Tensor], dtype: torch.dtype, shape: tuple,
+               device) -> Optional[int]:
+    """An optional output a kernel fills (stamps, counts): its pointer or None."""
+    if t is None:
+        return None
+    _check(name, t, dtype, shape)
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, tensors on {device}")
+    return t.data_ptr()
+
+
+def tree_mst_cuda(weights: torch.Tensor, height: int, width: int, *, tile: int = MST_TILE,
+                  counts: Optional[torch.Tensor] = None,
+                  stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1: the MST of each grid, bool [N, E], from fp32 weights >= 0 [N, E].
+
+    ``tile`` picks the instance (``MST_TILE``, or ``SMALL_MST_TILE``, whose
+    contracted graph leaves shared memory early). ``counts`` (int32
+    [N, 5]) gets each image's phase-1 rounds, the components and edges phase
+    1 left, phase 2's rounds and those of them on device memory; ``stamps``
+    (int64 [N, 4]) the %globaltimer ns of phase 1's first start and last end
+    over the image's tiles and of phase 2's start and end."""
     n = weights.shape[0] if weights.ndim == 2 else 0
-    _check("weights", weights, torch.float32, (n, num_grid_edges(height, width)))
+    E = num_grid_edges(height, width)
+    _check("weights", weights, torch.float32, (n, E))
     if n < 1:
         raise ValueError("weights must hold at least one image")
+    if tile not in (MST_TILE, SMALL_MST_TILE):
+        raise ValueError(f"no MST instance with {tile}-vertex tiles: "
+                         f"{MST_TILE} or {SMALL_MST_TILE}")
     V, dev = height * width, weights.device
+    count_ptr = _check_out("counts", counts, torch.int32, (n, 5), dev)
+    stamp_ptr = _check_out("stamps", stamps, torch.int64, (n, 4), dev)
     sel = torch.empty(weights.shape, dtype=torch.bool, device=dev)
-    comp = torch.empty((n, V), dtype=torch.int32, device=dev)
-    hook = torch.empty_like(comp)
+    lab = torch.empty((n, V), dtype=torch.int32, device=dev)
+    keys = torch.empty((n, E), dtype=torch.int64, device=dev)
+    uv = torch.empty((n, E, 2), dtype=torch.int32, device=dev)
     best = torch.empty((n, V), dtype=torch.int64, device=dev)
-    err = _lib().tree_mst(weights.data_ptr(), sel.data_ptr(), comp.data_ptr(), hook.data_ptr(),
-                          best.data_ptr(), n, height, width, _stream(weights))
+    hook = torch.empty((n, V), dtype=torch.int32, device=dev)
+    counters = torch.empty((2, n), dtype=torch.int32, device=dev)
+    err = _lib().tree_mst(weights.data_ptr(), sel.data_ptr(), lab.data_ptr(), keys.data_ptr(),
+                          uv.data_ptr(), best.data_ptr(), hook.data_ptr(), counters.data_ptr(),
+                          count_ptr, stamp_ptr, n, height, width, tile, _stream(weights))
     _raise_on(err, "tree_mst")
     launches["tree_mst"] += 1
     return sel
 
 
 def tree_root_cuda(selected: torch.Tensor, embed: torch.Tensor, height: int, width: int,
-                   n_low: int, sigma: float) -> BFSTree:
+                   n_low: int, sigma: float, *, ring: int = RING,
+                   stamps: Optional[torch.Tensor] = None) -> BFSTree:
     """K2: each image's tree rooted at vertex 0, with its filter weights
-    (1/sigma on the first ``n_low`` images, 1 on the rest)."""
+    (1/sigma on the first ``n_low`` images, 1 on the rest).
+
+    ``ring`` picks the BFS instance: ``RING``, or ``SMALL_RING``, whose
+    levels outgrow its ring and which reads the masks from device memory.
+    ``stamps`` (int64 [N, 2]) gets the %globaltimer ns at each image's BFS
+    start and end."""
     n, V = selected.shape[0], height * width
     _check("selected", selected, torch.bool, (n, num_grid_edges(height, width)))
     D = embed.shape[-1] if embed.ndim == 3 else 0
@@ -386,18 +433,30 @@ def tree_root_cuda(selected: torch.Tensor, embed: torch.Tensor, height: int, wid
         raise ValueError(f"kernel takes 1..{MAX_EMBED} embedding channels, got {D}")
     if selected.device != embed.device:
         raise ValueError(f"selected on {selected.device} but embed on {embed.device}")
+    if ring not in (RING, SMALL_RING):
+        raise ValueError(f"no BFS instance with a {ring}-entry ring: {RING} or {SMALL_RING}")
     dev = selected.device
+    stamp_ptr = _check_out("stamps", stamps, torch.int64, (n, 2), dev)
+    masks = torch.empty((n, _lib().tree_root_mask_bytes(V)), dtype=torch.uint8, device=dev)
     order, parent, ppos = (torch.empty((n, V), dtype=torch.int32, device=dev) for _ in range(3))
     cptr, level = (torch.empty((n, V + 1), dtype=torch.int32, device=dev) for _ in range(2))
     n_levels = torch.empty(n, dtype=torch.int32, device=dev)
     w = torch.empty((n, V), dtype=torch.float32, device=dev)
     err = _lib().tree_root(
         selected.data_ptr(), embed.data_ptr(), D, n, height, width, n_low, inv_sigma(sigma),
-        order.data_ptr(), parent.data_ptr(), ppos.data_ptr(), cptr.data_ptr(),
-        level.data_ptr(), n_levels.data_ptr(), w.data_ptr(), _stream(selected))
+        masks.data_ptr(), order.data_ptr(), parent.data_ptr(), ppos.data_ptr(), cptr.data_ptr(),
+        level.data_ptr(), n_levels.data_ptr(), w.data_ptr(), stamp_ptr, ring, _stream(selected))
     _raise_on(err, "tree_root")
     launches["tree_root"] += 1
     return BFSTree(order, parent, ppos, cptr, level, n_levels, w)
+
+
+def mst_tile_registers() -> Tuple[int, int]:
+    """K1's phase-1 kernel at ``MST_TILE`` as built: registers a thread and
+    local-memory bytes a thread (register spills)."""
+    out = (ctypes.c_int * 2)()
+    _raise_on(_lib().tree_mst_tile_attributes(out), "tree_mst_tile_attributes")
+    return out[0], out[1]
 
 
 def _tree_ptrs(tree: BFSTree):

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import confident_logits, serpentine_weights, smooth_images
+from chip_smoke import (MST_TILE_LOCAL_BYTES, MST_TILE_REGISTERS, confident_logits,
+                        serpentine_weights, smooth_images)
 from fedicra_torch.losses.gated_crf import gated_crf_features
 from fedicra_torch.ops import gated_crf_cuda, gaussian_filter_cuda, tree_filter_cuda
 
@@ -449,6 +450,128 @@ def test_tree_filter_stamps_time_each_pass(cuda_device):
     assert (stamps[:, 0] > 0).all() and (stamps[:, 2] >= stamps[:, 1]).all()
 
 
+def _structure_weights(kind, h, w, rng):
+    """MST weights [E]: random, all equal (the edge index decides every tie),
+    a path-shaped tree or a comb."""
+    E = tree_filter_cuda.num_grid_edges(h, w)
+    if kind == "random":
+        return rng.uniform(1.0, 2.0, E).astype(np.float32)
+    if kind == "equal":
+        return np.ones(E, np.float32)
+    return serpentine_weights(h, w) if kind == "serpentine" else _comb_weights(h, w)
+
+
+def _hold_tree(got, want):
+    """K2's arrays exactly the twin's (levels up to each image's count), w at rtol 1e-6."""
+    for name in ("order", "parent", "ppos", "cptr", "n_levels"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    used = torch.arange(got.level.shape[1], device=got.level.device) <= want.n_levels[:, None].long()
+    assert torch.equal(got.level[used], want.level[used])
+    torch.testing.assert_close(got.w, want.w, rtol=1e-6, atol=1.2e-38)
+
+
+STRUCTURE_CASES = [  # (kind, images, h, w): ragged tiles, 1 x N and N x 1 grids
+    ("random", 3, 33, 37), ("random", 2, 64, 48), ("random", 1, 1, 200), ("random", 1, 200, 1),
+    ("equal", 2, 33, 37), ("equal", 1, 1, 70), ("serpentine", 1, 33, 37), ("comb", 1, 96, 80),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, n, h, w", STRUCTURE_CASES)
+def test_tree_mst_and_root_instances_match_twins(cuda_device, kind, n, h, w):
+    """K1 at both tiles (the main path's, 32, and the tests' 8 with its small
+    contracted store) bit for bit the twin's MST; K2 at both rings (the main
+    path's, and the 16-entry one that reads its masks from device memory)
+    the twin's arrays exactly; a second launch of each the same bits; one
+    launch counted a call."""
+    rng = np.random.default_rng(h * w + n)
+    weights = torch.tensor(np.stack([_structure_weights(kind, h, w, rng) for _ in range(n)]),
+                           device=cuda_device)
+    want = tree_filter_cuda.tree_mst_plain(weights, h, w)
+    tree_filter_cuda.reset_launches()
+    tiles = (tree_filter_cuda.MST_TILE, tree_filter_cuda.SMALL_MST_TILE)
+    rings = (tree_filter_cuda.RING, tree_filter_cuda.SMALL_RING)
+    for tile in tiles:
+        sel = tree_filter_cuda.tree_mst_cuda(weights, h, w, tile=tile)
+        again = tree_filter_cuda.tree_mst_cuda(weights, h, w, tile=tile)
+        assert torch.equal(sel, want) and torch.equal(again, sel), f"tile {tile}"
+    emb = torch.tensor(rng.normal(size=(n, h * w, 3)), dtype=torch.float32, device=cuda_device)
+    twin = tree_filter_cuda.tree_root_plain(want, emb, h, w, max(n // 2, 1), 0.02)
+    for ring in rings:
+        got = tree_filter_cuda.tree_root_cuda(want, emb, h, w, max(n // 2, 1), 0.02, ring=ring)
+        _hold_tree(got, twin)
+        _hold_tree(tree_filter_cuda.tree_root_cuda(want, emb, h, w, max(n // 2, 1), 0.02, ring=ring), got)
+    torch.cuda.synchronize()
+    assert tree_filter_cuda.launches == {"tree_mst": 2 * len(tiles), "tree_root": 2 * len(rings),
+                                         "tree_fwd": 0, "tree_bwd": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h, w, tile", [(64, 48, tree_filter_cuda.SMALL_MST_TILE), (1024, 1024, None)])
+def test_tree_mst_contracted_graph_on_device_memory(cuda_device, h, w, tile):
+    """An image whose contracted graph does not fit one block's shared memory
+    (the tests' store at 64 x 48; the main store at 1024^2 of random
+    weights) runs its first phase-2 rounds on device memory: the MST is the
+    twin's bit for bit, and the counts show those rounds."""
+    tile = tile or tree_filter_cuda.MST_TILE
+    rng = np.random.default_rng(h)
+    weights = torch.tensor(rng.uniform(1.0, 2.0, (1, tree_filter_cuda.num_grid_edges(h, w))),
+                           dtype=torch.float32, device=cuda_device)
+    counts = torch.zeros((1, 5), dtype=torch.int32, device=cuda_device)
+    sel = tree_filter_cuda.tree_mst_cuda(weights, h, w, tile=tile, counts=counts)
+    assert torch.equal(sel, tree_filter_cuda.tree_mst_plain(weights, h, w))
+    p1_rounds, components, edges, p2_rounds, device_rounds = counts[0].tolist()
+    assert p1_rounds >= 1 and components > 1 and edges >= components - 1
+    assert 1 <= device_rounds <= p2_rounds
+
+
+@pytest.mark.cuda
+def test_tree_root_levels_wider_than_the_ring(cuda_device):
+    """A comb's middle levels are wider than the 16-entry ring, so they run
+    on device memory; the arrays equal the main instance's and the twin's."""
+    h, w = 96, 80
+    weights = torch.tensor(_comb_weights(h, w), device=cuda_device)[None].contiguous()
+    sel = tree_filter_cuda.tree_mst_cuda(weights, h, w)
+    emb = torch.rand((1, h * w, 2), device=cuda_device)
+    small = tree_filter_cuda.tree_root_cuda(sel, emb, h, w, 1, 0.02, ring=tree_filter_cuda.SMALL_RING)
+    widest = int(torch.diff(small.level[0, :int(small.n_levels[0]) + 1].long()).max())
+    assert widest > tree_filter_cuda.SMALL_RING
+    _hold_tree(small, tree_filter_cuda.tree_root_plain(sel, emb, h, w, 1, 0.02))
+    _hold_tree(small, tree_filter_cuda.tree_root_cuda(sel, emb, h, w, 1, 0.02))
+
+
+@pytest.mark.cuda
+def test_tree_mst_and_root_stamps_and_counts(cuda_device):
+    """K1's stamps (phase 1's start and end, phase 2's) and counts, and K2's
+    BFS stamps: in order on every image, and the outputs an unstamped
+    launch's."""
+    b, h, w = 3, 100, 70
+    rng = np.random.default_rng(3)
+    weights = torch.tensor(rng.uniform(1, 2, (b, tree_filter_cuda.num_grid_edges(h, w))),
+                           dtype=torch.float32, device=cuda_device)
+    stamps = torch.zeros((b, 4), dtype=torch.int64, device=cuda_device)
+    counts = torch.zeros((b, 5), dtype=torch.int32, device=cuda_device)
+    sel = tree_filter_cuda.tree_mst_cuda(weights, h, w, counts=counts, stamps=stamps)
+    assert torch.equal(sel, tree_filter_cuda.tree_mst_cuda(weights, h, w))
+    assert (stamps[:, 0] > 0).all() and (stamps[:, 1] >= stamps[:, 0]).all()
+    assert (stamps[:, 2] >= stamps[:, 1]).all() and (stamps[:, 3] >= stamps[:, 2]).all()
+    assert (counts[:, 0] >= 1).all() and (counts[:, 1] > 1).all() and (counts[:, 3] >= 1).all()
+    emb = torch.rand((b, h * w, 3), device=cuda_device)
+    bfs = torch.zeros((b, 2), dtype=torch.int64, device=cuda_device)
+    tree = tree_filter_cuda.tree_root_cuda(sel, emb, h, w, 1, 0.02, stamps=bfs)
+    _hold_tree(tree, tree_filter_cuda.tree_root_cuda(sel, emb, h, w, 1, 0.02))
+    assert (bfs[:, 0] > 0).all() and (bfs[:, 1] >= bfs[:, 0]).all()
+
+
+@pytest.mark.cuda
+def test_tree_mst_tile_kernel_register_budget(cuda_device):
+    """K1's phase-1 kernel asks for two 1,024-thread blocks an SM, so at most
+    32 registers a thread; its spills to local memory stay within the bytes
+    the measured build took."""
+    regs, local = tree_filter_cuda.mst_tile_registers()
+    assert 0 < regs <= MST_TILE_REGISTERS and local <= MST_TILE_LOCAL_BYTES
+
+
 @pytest.mark.cuda
 def test_tree_kernels_refuse_unsupported_inputs(cuda_device):
     h, w = 4, 5
@@ -472,3 +595,21 @@ def test_tree_kernels_refuse_unsupported_inputs(cuda_device):
                                               window=32)
     with pytest.raises(ValueError, match="stamps"):
         tree_filter_cuda.tree_filter_fwd_cuda(x, tree, stamps=torch.zeros(1, 3, device=cuda_device))
+    weights = torch.rand(1, E, device=cuda_device) + 1
+    with pytest.raises(ValueError, match="no MST instance"):
+        tree_filter_cuda.tree_mst_cuda(weights, h, w, tile=16)
+    with pytest.raises(ValueError, match="no MST instance"):
+        tree_filter_cuda.tree_mst_cuda(weights, h, w, tile=64)
+    with pytest.raises(ValueError, match="counts"):
+        tree_filter_cuda.tree_mst_cuda(weights, h, w, counts=torch.zeros(1, 4, dtype=torch.int32,
+                                                                        device=cuda_device))
+    with pytest.raises(ValueError, match="stamps"):
+        tree_filter_cuda.tree_mst_cuda(weights, h, w, stamps=torch.zeros(1, 4, device=cuda_device))
+    emb = torch.zeros(1, V, 3, device=cuda_device)
+    with pytest.raises(ValueError, match="no BFS instance"):
+        tree_filter_cuda.tree_root_cuda(sel, emb, h, w, 1, 0.02, ring=32)
+    with pytest.raises(ValueError, match="no BFS instance"):
+        tree_filter_cuda.tree_root_cuda(sel, emb, h, w, 1, 0.02, ring=2 * tree_filter_cuda.RING)
+    with pytest.raises(ValueError, match="stamps"):
+        tree_filter_cuda.tree_root_cuda(sel, emb, h, w, 1, 0.02,
+                                        stamps=torch.zeros(1, 3, dtype=torch.int64, device=cuda_device))

@@ -31,6 +31,7 @@ from fedicra_torch.ops import tree_filter, tree_filter_cuda
 from fedicra_torch.ops.mst import grid_edges
 from fedicra_tpu import native
 from fedicra_tpu.losses import tree_energy as jax_te
+from test_torch_kernels import _structure_weights
 from torch_port_helpers import one_torch_thread, t  # noqa: F401
 
 SIGMA = 0.02
@@ -348,3 +349,183 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_launching():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tree_filter_cuda.tree_filter_bwd_cuda(x, y, A, F, tree, None)
     assert tree_filter_cuda.launches == {"tree_mst": 0, "tree_root": 0, "tree_fwd": 0, "tree_bwd": 0}
+
+
+# ---- a numpy model of K1's and K2's designs ---------------------------------
+#
+# csrc/tree_filter.cu finds the MST in two phases and roots it by a BFS
+# driven by per-vertex masks. The model below follows the same rules (not
+# the same code paths: it runs every tile at once), so a wrong rule shows
+# against the native C++ here, before the kernels run on a card.
+
+NO_KEY = np.uint64(0xFFFFFFFFFFFFFFFF)
+LOW32 = np.uint64(0xFFFFFFFF)
+
+
+def _edge_keys(weights):
+    """The kernels' uint64 keys: the weight's bits over the edge index."""
+    bits = np.ascontiguousarray(weights, np.float32).view(np.uint32).astype(np.uint64)
+    return bits << np.uint64(32) | np.arange(weights.shape[-1], dtype=np.uint64)
+
+
+def _jump(hook):
+    while not np.array_equal(hook[hook], hook):
+        hook = hook[hook]
+    return hook
+
+
+def _least_keys(n, lu, lv, keys):
+    best = np.full(n, NO_KEY)
+    np.minimum.at(best, lu, keys)
+    np.minimum.at(best, lv, keys)
+    return best
+
+
+def model_mst(weights, h, w, tile):
+    """K1's two phases on one image: (selection bool [E], counts).
+
+    Phase 1, per tile: a component takes its least key over every edge at its
+    vertices; it hooks across that edge when the edge lies inside the tile
+    (a mutual pair's smaller id stays root) and waits when it leaves the
+    tile; rounds run until no component hooks. Phase 2: the edges that join
+    two components, one a pair with the least key, in rounds that drop the
+    edges inside one component."""
+    eu, ev = (a.astype(np.int64) for a in grid_edges(h, w))
+    V = h * w
+    keys = _edge_keys(weights)
+    ar = np.arange(V)
+    tile_of = (ar // w) // tile * -(-w // tile) + (ar % w) // tile
+    leaves = tile_of[eu] != tile_of[ev]
+    comp, sel = ar.copy(), np.zeros(len(eu), bool)
+    rounds = 0
+    while True:
+        cand = leaves | (comp[eu] != comp[ev])
+        best = _least_keys(V, comp[eu[cand]], comp[ev[cand]], keys[cand])
+        roots = np.flatnonzero((comp == ar) & (best != NO_KEY))
+        e = (best[roots] & LOW32).astype(np.int64)
+        roots, e = roots[~leaves[e]], e[~leaves[e]]
+        if len(roots) == 0:
+            break
+        rounds += 1
+        cu = comp[eu[e]]
+        other = np.where(cu == roots, comp[ev[e]], cu)
+        hook = ar.copy()
+        hook[roots] = np.where((best[other] == best[roots]) & (roots < other), roots, other)
+        sel[e] = True
+        comp = _jump(hook)[comp]
+    lu, lv = comp[eu], comp[ev]
+    keep = lu != lv
+    lo, hi, k = np.minimum(lu, lv)[keep], np.maximum(lu, lv)[keep], keys[keep]
+    pair = lo * V + hi
+    order = np.lexsort((k, pair))  # by pair, then key: each pair's least first
+    head = np.ones(len(order), bool)
+    head[1:] = pair[order][1:] != pair[order][:-1]
+    lu, lv, k = lo[order][head], hi[order][head], k[order][head]
+    counts = dict(p1_rounds=rounds, components=int((comp == ar).sum()), edges=len(k))
+    p2 = 0
+    while len(k):
+        best = _least_keys(V, lu, lv, k)
+        hook = ar.copy()
+        for a, b in ((lu, lv), (lv, lu)):
+            mine = k == best[a]
+            hook[a[mine]] = np.where((best[b[mine]] == k[mine]) & (a[mine] < b[mine]), a[mine], b[mine])
+        sel[(k[(k == best[lu]) | (k == best[lv])] & LOW32).astype(np.int64)] = True
+        hook = _jump(hook)
+        lu, lv = hook[lu], hook[lv]
+        live = lu != lv
+        lu, lv, k = lu[live], lv[live], k[live]
+        p2 += 1
+    counts["p2_rounds"] = p2
+    return sel, counts
+
+
+def model_bfs(sel, h, w):
+    """K2's BFS from per-vertex masks (bit 0 right, 1 left, 2 down, 3 up):
+    a vertex's children are its mask less the bit toward its parent, in bit
+    order. Returns (order, parent, ppos, cptr, level offsets)."""
+    V, NV = h * w, (h - 1) * w
+    i, j = np.divmod(np.arange(V), w)
+    s = np.concatenate([np.asarray(sel, bool), [False]])
+    E = len(s) - 1
+    at = lambda ok, e: ok & s[np.where(ok, e, E)]
+    row = NV + i * (w - 1)
+    mask = (at(j + 1 < w, row + j) * 1 + at(j > 0, row + j - 1) * 2
+            + at(i + 1 < h, np.arange(V)) * 4 + at(i > 0, np.arange(V) - w) * 8)
+    delta = (1, -1, w, -w)
+    order, to_parent, ppos, cptr = [0], [-1], [0], []
+    parent = np.zeros(V, np.int64)
+    levels, start, end = [0, 1], 0, 1
+    while True:
+        for p in range(start, end):
+            u = order[p]
+            m = mask[u] & ~(1 << to_parent[p] if p else 0)
+            cptr.append(len(order))
+            for d in range(4):
+                if m >> d & 1:
+                    order.append(u + delta[d])
+                    to_parent.append(d ^ 1)
+                    ppos.append(p)
+                    parent[u + delta[d]] = u
+        if len(order) == end:
+            break
+        start, end = end, len(order)
+        levels.append(end)
+    return np.array(order), parent, np.array(ppos), np.array(cptr + [V]), np.array(levels)
+
+
+MODEL_CASES = [  # (kind, h, w, tile): tiles that do not divide H or W, and 1 x N, N x 1
+    ("random", 24, 24, 8), ("random", 33, 37, 8), ("random", 33, 37, 32), ("random", 1, 70, 8),
+    ("random", 70, 1, 8), ("equal", 33, 37, 8), ("equal", 1, 70, 8), ("equal", 70, 1, 8),
+    ("serpentine", 33, 37, 8), ("serpentine", 32, 32, 8), ("comb", 33, 37, 8), ("comb", 40, 24, 8),
+]
+
+
+@pytest.mark.parametrize("kind, h, w, tile", MODEL_CASES, ids=lambda v: str(v))
+def test_mst_model_equals_native_boruvka(native_lib, kind, h, w, tile):
+    """The two-phase design's selection, bit for bit the native C++'s; phase
+    1 leaves work for phase 2 wherever the image spans several tiles."""
+    weights = _structure_weights(kind, h, w, np.random.default_rng(h * w + tile))
+    sel, counts = model_mst(weights, h, w, tile)
+    eu, ev = grid_edges(h, w)
+    np.testing.assert_array_equal(sel, native.boruvka_mst_batch(eu, ev, weights[None])[0])
+    assert sel.sum() == h * w - 1
+    if h > tile or w > tile:
+        assert counts["components"] > 1 and counts["p2_rounds"] >= 1, counts
+    assert counts["edges"] <= tree_filter_cuda.num_grid_edges(h, w)
+
+
+@pytest.mark.parametrize("guide", ["random", "equal"])
+@pytest.mark.parametrize("h, w", [(24, 24), (33, 37), (1, 70), (70, 1)], ids=lambda v: str(v))
+def test_bfs_model_equals_native_low_structure(native_lib, guide, h, w):
+    """The mask-driven BFS on the two-phase MST of a guide: order and
+    parents exactly ``tree_low_structure_build``'s (a constant guide gives
+    equal weights, where the edge index decides every tie)."""
+    rng = np.random.default_rng(h + 7 * w)
+    eu, ev = grid_edges(h, w)
+    low = _noise(rng, 1, h * w, 3) if guide == "random" else np.full((1, h * w, 3), 0.5, np.float32)
+    parent, order, _ = native.tree_low_structure_build(low, eu, ev, SIGMA)
+    sel, _ = model_mst(_mst_weights(low, eu, ev)[0], h, w, 8)
+    got_order, got_parent, *_ = model_bfs(sel, h, w)
+    np.testing.assert_array_equal(got_order, order[0])
+    np.testing.assert_array_equal(got_parent, parent[0])
+
+
+@pytest.mark.parametrize("kind, h, w", [("serpentine", 33, 37), ("comb", 33, 37), ("comb", 40, 24),
+                                        ("random", 1, 70), ("random", 70, 1)], ids=lambda v: str(v))
+def test_bfs_model_equals_bfs_twin(kind, h, w):
+    """The mask-driven BFS against the BFS twin on the same selection: the
+    queue, parents, parent positions, child ranges and level offsets (a
+    path-shaped tree of V levels, a comb whose middle levels are widest)."""
+    sel = tree_filter_cuda.tree_mst_plain(
+        torch.tensor(_structure_weights(kind, h, w, np.random.default_rng(5)))[None], h, w)
+    twin = tree_filter_cuda.tree_root_plain(sel, torch.zeros(1, h * w, 1), h, w, 1, SIGMA)
+    order, parent, ppos, cptr, levels = model_bfs(sel[0].numpy(), h, w)
+    np.testing.assert_array_equal(order, twin.order[0].numpy())
+    np.testing.assert_array_equal(parent, twin.parent[0].numpy())
+    np.testing.assert_array_equal(ppos, twin.ppos[0].numpy())
+    np.testing.assert_array_equal(cptr, twin.cptr[0].numpy())
+    n_levels = int(twin.n_levels[0])
+    assert len(levels) == n_levels + 1
+    np.testing.assert_array_equal(levels, twin.level[0, :n_levels + 1].numpy())
+    if kind == "serpentine":
+        assert n_levels == h * w

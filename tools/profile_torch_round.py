@@ -32,11 +32,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # convolution: cuDNN's batch-norm kernels carry "cudnn" in their names).
 FAMILIES = (
     ("gated_crf", ("gated_crf",)),  # gated_crf_fused_kernel
-    # csrc/tree_filter.cu: MST, BFS rooting, and the filter's forward and
-    # backward (the parallel gathers and scatters, the passes, d embed)
-    ("tree_kernels", ("mst_kernel", "root_kernel", "fwd_gather_kernel", "tree_pass_kernel",
-                      "fwd_scatter_kernel", "bwd_gather_kernel", "bwd_scatter_kernel",
-                      "dembed_kernel")),
+    # csrc/tree_filter.cu: MST (tiles, edges between them, the contracted
+    # graph), BFS rooting (masks, the BFS, parents and weights), and the
+    # filter's forward and backward (the parallel gathers and scatters, the
+    # passes, d embed)
+    ("tree_kernels", ("mst_tile_kernel", "mst_cross_kernel", "mst_contract_kernel",
+                      "tree_mask_kernel", "tree_bfs_kernel", "root_weights_kernel",
+                      "fwd_gather_kernel", "tree_pass_kernel", "fwd_scatter_kernel",
+                      "bwd_gather_kernel", "bwd_scatter_kernel", "dembed_kernel")),
     ("sort", ("sort", "radix")),
     ("gather_scatter", ("gather", "scatter", "index")),
     ("batch_norm", ("batch_norm", "bn_", "batchnorm", "welford")),
@@ -140,6 +143,10 @@ def main() -> int:
     print("kernel time by family (ms, share of summed kernel time):")
     for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:12s} {ms:10.3f}  {100 * ms / kernel_ms:6.2f}%")
+    print("tree kernels (ms, launches):")
+    for name, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0]):
+        if family(name) == "tree_kernels":
+            print(f"  {ms:10.3f} {n:6d}  {name[:110]}")
     print("top kernels (ms, launches):")
     for name, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:20]:
         print(f"  {ms:10.3f} {n:6d}  {name[:110]}")
