@@ -72,14 +72,16 @@ def _forward(model, images, cid, cfg: TrainConfig, generator):
     return model(images, emb_idx=emb, generator=generator)
 
 
-def _tree_loss(out, images, labels, cfg: TrainConfig, recursive: bool) -> torch.Tensor:
+def _tree_loss(out, images, labels, cfg: TrainConfig, recursive: bool,
+               host_offload: Optional[bool] = None) -> torch.Tensor:
     """The multi-scale tree term on the unlabelled ROI, guided by the image
-    (a 1-channel image repeated to 3 channels)."""
+    (a 1-channel image repeated to 3 channels); ``host_offload`` picks the
+    route as in ``multi_scale_tree_energy_loss``."""
     unlabeled_rois = (labels == cfg.num_classes).float()
     three_channel = images.repeat(1, 1, 1, 3) if images.shape[-1] == 1 else images
     loss_tree, _, _, _ = multi_scale_tree_energy_loss(
         out["logits"], three_channel, *out["aux"], unlabeled_rois,
-        cfg.tree_loss_weight, recursive=recursive,
+        cfg.tree_loss_weight, recursive=recursive, host_offload=host_offload,
     )
     return loss_tree
 

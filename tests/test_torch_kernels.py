@@ -66,10 +66,11 @@ def test_plain_twin_widens_bf16_y():
     assert loss.dtype == torch.float32 and torch.equal(loss, loss32) and torch.equal(acc, acc32)
 
 
-def _confident_inputs(rng, b, c, h, w):
+def _confident_inputs(rng, b, c, h, w, nf=5):
     """Near one-hot maps over smooth class regions and the gated CRF's
-    features of a smooth image, where K(q) and <y(q), acc(q)> nearly cancel."""
-    image = torch.as_tensor(smooth_images(rng, b, h, w))
+    features of a smooth image of nf - 2 channels, where K(q) and
+    <y(q), acc(q)> nearly cancel."""
+    image = torch.as_tensor(smooth_images(rng, b, h, w, nf - 2))
     f = gated_crf_features(image, 6.0, 0.1).permute(0, 3, 1, 2).contiguous()
     return confident_logits(rng, b, c, h, w), f.numpy()
 
@@ -79,7 +80,10 @@ def _confident_inputs(rng, b, c, h, w):
     "b, c, nf, h, w, r, confident",
     [(2, 3, 5, 37, 70, 5, False), (1, 2, 3, 9, 33, 2, False), (3, 4, 3, 16, 16, 1, False),
      (12, 3, 5, 64, 64, 5, False), (2, 4, 5, 40, 72, 4, False), (2, 3, 5, 37, 70, 5, True),
-     (12, 3, 5, 64, 64, 5, True)],
+     (12, 3, 5, 64, 64, 5, True),
+     # FAZ (2 classes, a gray image: F = 3) and Polyp (2 classes, rgb: F = 5) at batch 12
+     (12, 2, 3, 128, 128, 5, False), (12, 2, 3, 128, 128, 5, True),
+     (12, 2, 5, 96, 96, 5, False), (12, 2, 5, 96, 96, 5, True)],
 )
 def test_kernel_matches_plain_twin(cuda_device, b, c, nf, h, w, r, confident):
     """Loss at rtol 1e-5 and acc at rtol 1e-4 / atol 1e-6 against the fused
@@ -87,9 +91,8 @@ def test_kernel_matches_plain_twin(cuda_device, b, c, nf, h, w, r, confident):
     and near one-hot maps; one launch per forward and none in the backward,
     whose dL/dy is -2/(B H W) acc; the same input gives the same bits."""
     rng = np.random.default_rng(b * 100 + h)
-    if confident:
-        assert nf == 5  # xy + the smooth image's rgb
-        logits, f = _confident_inputs(rng, b, c, h, w)
+    if confident:  # xy + the smooth image's nf - 2 channels
+        logits, f = _confident_inputs(rng, b, c, h, w, nf)
     else:
         logits, f = rng.normal(size=(b, c, h, w)), rng.uniform(size=(b, nf, h, w))
     logits = torch.tensor(logits, dtype=torch.float32, device=cuda_device)
@@ -309,18 +312,28 @@ def test_gaussian_kernel_refuses_unsupported_shapes(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b, h, w, c", [(2, 12, 12, 3), (3, 17, 40, 2), (2, 64, 48, 4), (1, 1, 9, 1)])
-def test_tree_kernels_match_plain_twins(cuda_device, b, h, w, c):
+@pytest.mark.parametrize("b, h, w, c, gray", [(2, 12, 12, 3, False), (3, 17, 40, 2, False),
+                                              (2, 64, 48, 4, False), (1, 1, 9, 1, False),
+                                              (2, 256, 256, 2, True)])
+def test_tree_kernels_match_plain_twins(cuda_device, b, h, w, c, gray):
     """The four tree kernels against their twins on the same inputs: the MST
     and the BFS arrays exactly (levels up to each image's count), the weights
     at rtol 1e-6, the filter's y at rtol 1e-4 and its backward at rtol 1e-3;
-    one launch each."""
+    one launch each. ``gray``: at FAZ's size and C, the low trees' guide one
+    channel on 256 levels (zero-padded to c, as ``native_structures`` pads
+    it), whose many equal edge weights the MST must break by edge index as
+    its twin. D = 1 is a function-level case: FAZ's objective repeats its
+    gray image to 3 channels, the shape chip_smoke.py's ``[tasks]`` holds."""
     from fedicra_torch.ops.mst import grid_edges
 
     rng = np.random.default_rng(h * w)
     V = h * w
     eu, ev = (torch.as_tensor(a, device=cuda_device).long() for a in grid_edges(h, w))
     emb = torch.tensor(rng.normal(size=(2 * b, V, c)), dtype=torch.float32, device=cuda_device)
+    if gray:
+        emb[:b, :, 1:] = 0.0
+        emb[:b, :, 0] = torch.tensor(np.round(rng.uniform(size=(b, V)) * 255.0) / 255.0,
+                                     dtype=torch.float32, device=cuda_device)
     weights = ((emb[:, eu] - emb[:, ev]) ** 2).sum(-1) + 1.0
     tree_filter_cuda.reset_launches()
     sel = tree_filter_cuda.tree_mst(weights, h, w)
