@@ -1,0 +1,11 @@
+"""Round layer: the median head-phase step of the window (ms), timed by the
+benchmark's host clock between synchronised ``on_step`` calls."""
+
+import statistics
+
+UNIT = "ms"
+
+
+def read(record):
+    steps = record.get("step_s", {}).get("head")
+    return statistics.median(steps) * 1e3 if steps else None
