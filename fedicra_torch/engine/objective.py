@@ -14,7 +14,10 @@ heatmap under client k's embedding, no gradient). At ``tree_loss_weight``
 
 The objectives run the model in train mode and so advance its BatchNorm
 running statistics in place, as the reference's torch code does; they
-return ``(loss, metrics)``. Under AMP the terms keep the dtypes JAX gives
+return ``(loss, metrics)``. Under a ``torch.profiler`` session the step's
+own forward, the contrast forwards, the tree term and the gated CRF are the
+spans ``fedicra.step.forward``, ``.contrast``, ``.tree_term`` and
+``.crf_term`` (``utils/profiling.py``). Under AMP the terms keep the dtypes JAX gives
 them: bf16 logits give a bf16 softmax, pCE and contrast term, the gated
 CRF and the tree term come back fp32, and their sum is fp32.
 """
@@ -31,6 +34,7 @@ from ..losses.tree_energy import multi_scale_tree_energy_loss
 from ..models.factory import LC_MODELS
 from ..ops.activations import softmax
 from ..parallel.data_axis import batch_mean
+from ..utils.profiling import annotate
 from .config import TrainConfig
 
 
@@ -53,23 +57,25 @@ def _contrast_loss(
     K = cfg.num_clients
     batch = images.shape[0]
     mses = []
-    for k in range(K):
-        if k == cid:
-            continue
-        emb = torch.full((batch,), cid if k == 0 else k, dtype=torch.long, device=images.device)
-        with torch.no_grad():
-            hm_k = model(images, emb_idx=emb, generator=generator)["heatmaps"][-1]
-        mses.append(batch_mean((hm_own - hm_k) ** 2))
-    # one sum in the heatmaps' dtype, as JAX's (bf16 under AMP)
-    return -torch.stack(mses).sum() / (K - 1)
+    with annotate("fedicra.step.contrast"):
+        for k in range(K):
+            if k == cid:
+                continue
+            emb = torch.full((batch,), cid if k == 0 else k, dtype=torch.long, device=images.device)
+            with torch.no_grad():
+                hm_k = model(images, emb_idx=emb, generator=generator)["heatmaps"][-1]
+            mses.append(batch_mean((hm_own - hm_k) ** 2))
+        # one sum in the heatmaps' dtype, as JAX's (bf16 under AMP)
+        return -torch.stack(mses).sum() / (K - 1)
 
 
 def _forward(model, images, cid, cfg: TrainConfig, generator):
     """The train-mode forward; only an LC model is given the client's embedding."""
-    if cfg.model not in LC_MODELS:
-        return model(images, generator=generator)
-    emb = torch.full((images.shape[0],), cid, dtype=torch.long, device=images.device)
-    return model(images, emb_idx=emb, generator=generator)
+    with annotate("fedicra.step.forward"):
+        if cfg.model not in LC_MODELS:
+            return model(images, generator=generator)
+        emb = torch.full((images.shape[0],), cid, dtype=torch.long, device=images.device)
+        return model(images, emb_idx=emb, generator=generator)
 
 
 def _tree_loss(out, images, labels, cfg: TrainConfig, recursive: bool,
@@ -77,13 +83,14 @@ def _tree_loss(out, images, labels, cfg: TrainConfig, recursive: bool,
     """The multi-scale tree term on the unlabelled ROI, guided by the image
     (a 1-channel image repeated to 3 channels); ``host_offload`` picks the
     route as in ``multi_scale_tree_energy_loss``."""
-    unlabeled_rois = (labels == cfg.num_classes).float()
-    three_channel = images.repeat(1, 1, 1, 3) if images.shape[-1] == 1 else images
-    loss_tree, _, _, _ = multi_scale_tree_energy_loss(
-        out["logits"], three_channel, *out["aux"], unlabeled_rois,
-        cfg.tree_loss_weight, recursive=recursive, host_offload=host_offload,
-    )
-    return loss_tree
+    with annotate("fedicra.step.tree_term"):
+        unlabeled_rois = (labels == cfg.num_classes).float()
+        three_channel = images.repeat(1, 1, 1, 3) if images.shape[-1] == 1 else images
+        loss_tree, _, _, _ = multi_scale_tree_energy_loss(
+            out["logits"], three_channel, *out["aux"], unlabeled_rois,
+            cfg.tree_loss_weight, recursive=recursive, host_offload=host_offload,
+        )
+        return loss_tree
 
 
 def ours_loss(
@@ -106,7 +113,8 @@ def ours_loss(
         loss_tree = torch.zeros((), device=logits.device)
     else:
         loss_tree = _tree_loss(out, images, labels, cfg, recursive=True)
-    loss_crf = gated_crf_loss_auto(probs, images, radius=cfg.gatecrf_radius)
+    with annotate("fedicra.step.crf_term"):
+        loss_crf = gated_crf_loss_auto(probs, images, radius=cfg.gatecrf_radius)
     loss = loss_ce + loss_tree + cfg.gatecrf_weight * loss_crf
     metrics = {"loss_ce": loss_ce, "loss_tree": loss_tree, "loss_crf": loss_crf}
 

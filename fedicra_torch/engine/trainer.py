@@ -35,6 +35,7 @@ from ..device import resolve_device
 from ..models.blocks import compute_dtype, init_torch_default
 from ..models.params_filters import is_dsn_head, is_head, is_pcs
 from ..parallel.data_axis import current_shard
+from ..utils.profiling import HostSyncs, annotate
 from .config import TrainConfig
 from .objective import get_objective
 
@@ -86,6 +87,12 @@ def make_round_fn(model, cfg: TrainConfig, device=None):
     (tensors or numpy arrays). ``metrics`` maps each name to a tensor of
     shape [iters]. ``on_step(j, metrics_j)``, if given, is called after each
     optimizer step.
+
+    Under a ``torch.profiler`` session the round emits the spans
+    ``fedicra.round.load_state``, ``.phase_setup`` (each phase),
+    ``.split_state``, ``fedicra.step`` (ids ``cid``, ``j``, ``phase``; closed
+    before ``on_step``) and ``fedicra.step.backward``, and on a card counts its
+    host syncs, ``on_step``'s left out (``utils/profiling.py``).
     """
     device = resolve_device(device)
     model.to(device)
@@ -106,55 +113,62 @@ def make_round_fn(model, cfg: TrainConfig, device=None):
     full = [n for n in names if trainable(n)]
 
     def round_fn(state: ClientState, batches, cid: int, on_step: Optional[Callable] = None):
-        model.load_state_dict({**state.params, **state.batch_stats})
-        model.train()
-        shard = current_shard()
-        images = torch.as_tensor(batches["image"], device=device).float()
-        labels = torch.as_tensor(batches["label"], device=device).long()
-        start = state.current_iter
-        if cfg.fedicra:
-            n_head = cfg.iters - cfg.rep_iters
-            phases = [(head, 0, n_head), (body, n_head, cfg.iters)]
-        else:
-            phases = [(full, 0, cfg.iters)]
+        with HostSyncs(device) as syncs:
+            with annotate("fedicra.round.load_state", cid=cid):
+                model.load_state_dict({**state.params, **state.batch_stats})
+                model.train()
+                shard = current_shard()
+                images = torch.as_tensor(batches["image"], device=device).float()
+                labels = torch.as_tensor(batches["label"], device=device).long()
+            start = state.current_iter
+            if cfg.fedicra:
+                n_head = cfg.iters - cfg.rep_iters
+                phases = [("head", head, 0, n_head), ("body", body, n_head, cfg.iters)]
+            else:
+                phases = [("full", full, 0, cfg.iters)]
 
-        history: List[Dict[str, torch.Tensor]] = []
-        for group, lo, hi in phases:
-            live = set(group)
-            for n, p in model.named_parameters():
-                p.requires_grad_(n in live)
-            opt = torch.optim.AdamW(
-                [p for n, p in model.named_parameters() if n in live],
-                lr=poly_lr(cfg.base_lr, start + lo, cfg.max_iterations),
-                betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-2,
-            )
-            for j in range(lo, hi):
-                lr = poly_lr(cfg.base_lr, start + j, cfg.max_iterations)
-                for g in opt.param_groups:
-                    g["lr"] = lr
-                opt.zero_grad(set_to_none=True)
-                batch = {"image": images[j], "label": labels[j]}
-                with compute_dtype(amp_dtype):
-                    loss, metrics = objective(model, batch, cid, cfg, state.generator)
-                loss.backward()
-                metrics = {k: v.detach() for k, v in metrics.items()}
-                if shard is not None:
-                    grads = [p.grad for n, p in model.named_parameters()
-                             if n in live and p.grad is not None]
-                    for g, total in zip(grads, shard.sum_flat(grads)):
-                        g.copy_(total)
-                    metrics = shard.sum_scalars(metrics)
-                opt.step()
-                metrics["lr"] = torch.tensor(lr)
-                history.append(metrics)
-                if on_step is not None:
-                    on_step(j, metrics)
+            history: List[Dict[str, torch.Tensor]] = []
+            for phase, group, lo, hi in phases:
+                with annotate("fedicra.round.phase_setup", cid=cid, phase=phase):
+                    live = set(group)
+                    for n, p in model.named_parameters():
+                        p.requires_grad_(n in live)
+                    opt = torch.optim.AdamW(
+                        [p for n, p in model.named_parameters() if n in live],
+                        lr=poly_lr(cfg.base_lr, start + lo, cfg.max_iterations),
+                        betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-2,
+                    )
+                for j in range(lo, hi):
+                    with annotate("fedicra.step", cid=cid, j=j, phase=phase):
+                        lr = poly_lr(cfg.base_lr, start + j, cfg.max_iterations)
+                        for g in opt.param_groups:
+                            g["lr"] = lr
+                        opt.zero_grad(set_to_none=True)
+                        batch = {"image": images[j], "label": labels[j]}
+                        with compute_dtype(amp_dtype):
+                            loss, metrics = objective(model, batch, cid, cfg, state.generator)
+                        with annotate("fedicra.step.backward"):
+                            loss.backward()
+                        metrics = {k: v.detach() for k, v in metrics.items()}
+                        if shard is not None:
+                            grads = [p.grad for n, p in model.named_parameters()
+                                     if n in live and p.grad is not None]
+                            for g, total in zip(grads, shard.sum_flat(grads)):
+                                g.copy_(total)
+                            metrics = shard.sum_scalars(metrics)
+                        opt.step()
+                        metrics["lr"] = torch.tensor(lr)
+                        history.append(metrics)
+                    if on_step is not None:
+                        with syncs.paused():
+                            on_step(j, metrics)
 
-        for p in model.parameters():
-            p.requires_grad_(True)
-        params, stats = _split_state(model)
-        new_state = ClientState(params, stats, start + cfg.iters, state.generator)
-        stacked = {k: torch.stack([h[k].to(device) for h in history]) for k in history[0]}
-        return new_state, stacked
+            with annotate("fedicra.round.split_state", cid=cid):
+                for p in model.parameters():
+                    p.requires_grad_(True)
+                params, stats = _split_state(model)
+                new_state = ClientState(params, stats, start + cfg.iters, state.generator)
+                stacked = {k: torch.stack([h[k].to(device) for h in history]) for k in history[0]}
+            return new_state, stacked
 
     return round_fn

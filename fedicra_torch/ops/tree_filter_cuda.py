@@ -52,6 +52,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
 from ._build import load_library
 from .mst import boruvka_mst, grid_edges
 
@@ -585,13 +586,14 @@ class TreeFilter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        embed, y, A, F = ctx.saved_tensors
-        emb = None if ctx.low_tree else embed.float().contiguous()
-        g = g.float().contiguous()
-        bwd = tree_filter_bwd_plain if g.device.type == "cpu" else tree_filter_bwd_cuda
-        dx, dembed = bwd(g, y, A, F, ctx.tree, emb)
-        dembed = None if dembed is None else dembed.to(ctx.dtypes[1])
-        return dx.to(ctx.dtypes[0]), dembed, None, None
+        with annotate("fedicra.tree.filter_backward"):
+            embed, y, A, F = ctx.saved_tensors
+            emb = None if ctx.low_tree else embed.float().contiguous()
+            g = g.float().contiguous()
+            bwd = tree_filter_bwd_plain if g.device.type == "cpu" else tree_filter_bwd_cuda
+            dx, dembed = bwd(g, y, A, F, ctx.tree, emb)
+            dembed = None if dembed is None else dembed.to(ctx.dtypes[1])
+            return dx.to(ctx.dtypes[0]), dembed, None, None
 
 
 def tree_filter(feature: torch.Tensor, embed: torch.Tensor, tree: BFSTree, *,

@@ -1,5 +1,5 @@
-"""The port stands alone: no JAX stack in its imports (package, chip_smoke.py
-and the port's profiling tool), no silent CPU runs."""
+"""The port stands alone: no JAX stack in its imports (package and
+chip_smoke.py), no silent CPU runs."""
 
 import ast
 from pathlib import Path
@@ -9,9 +9,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fedicra_tpu")
-PORT_FILES = sorted((ROOT / "fedicra_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_round.py",
-]
+PORT_FILES = sorted((ROOT / "fedicra_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path: Path):
