@@ -38,6 +38,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    kernel's stamps, with the passes' consumer-warp count); on a
    path-shaped tree the MST and the BFS (against the path's arrays, and
    the twin on a 64 x 64 path) and each pass's ns a level;
+4c. the DSN heads' moment kernels (``[dsn-stats]``, csrc/dsn_stats.cu) at
+   the six head shapes (ODOC's three at 384^2, FAZ's at 256^2, batch 12):
+   mean and variance against float64 direct statistics and the plain twin
+   at rtol 1e-5, the running buffers against the twin's, each head timed
+   per call and back to back beside its bound, the twin and the library
+   composition (cuDNN's conv, then ``torch.batch_norm_stats``);
 5. the "ours" objective (tree term on) and ``treeenergy_add`` on the card
    (the kernel route) against the CPU (the plain route) at a small input;
 6. the tree-off round: one FedICRA local round of "ours" at
@@ -46,7 +52,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 7. the main path: the same round at the default tree_loss_weight=0.1,
    2 head steps then 2 body steps, its tree term on the kernels (4 MST, 4
    rooting, 16 forward and 16 backward filter launches, no plain filter
-   run), its first step again on the plain route (``loss_tree`` at rtol
+   run; 3 DSN moment launches in each of a step's 4 contrast forwards),
+   its first step again on the plain route (``loss_tree`` at rtol
    1e-4); then one ``treeenergy_add`` step at that shape;
 8. the federation: build_experiment and FederatedServer.run for 2 rounds
    of FedICRA "ours" at the same width, 5 clients on synthetic ODOC data,
@@ -103,8 +110,9 @@ a kernel of the port only as the reference they are compared with (13 the
 Gaussian filter, 15 the gated CRF); 12's processes launch the gated-CRF
 kernel, which their CUDA tensors cannot bypass, and this process cannot
 count. The last lines are the card's name and power limit, one JSON line
-of per-kernel numbers (the gated CRF, the Gaussian filter and the four
-tree kernels at the main path's shape, then the gated CRF and the tree
+of per-kernel numbers (the gated CRF, the Gaussian filter, the four
+tree kernels and the DSN moments at the main path's shape, the DSN moments
+at FAZ's (``dsn_stats[faz]``, launches not counted), then the gated CRF and the tree
 kernels at each task's, named ``gated_crf[faz]`` and so on, their
 launches the task's round's), and {"ok": true, "device": {...}}.
 """
@@ -1150,6 +1158,134 @@ def phase_tree_kernels(dev):
     return rows
 
 
+# the DSN heads' inputs, (channels, side) at batch 12: ODOC's three at 384^2, FAZ's at 256^2
+DSN_HEAD_SHAPES = {"odoc": ((64, 96), (32, 192), (16, 384)), "faz": ((64, 64), (32, 128), (16, 256))}
+DSN_HIDDEN = 512
+
+
+def dsn_head_inputs(dev, c: int, side: int, batch: int = BATCH, seed: int = 7):
+    """A DSN head's input (a decoder stage's output: LeakyReLU of a smooth
+    field, so that neighbouring taps correlate), and its 3x3 conv's weight
+    and bias drawn as torch's default initialisation draws them."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn(batch, c, side, side, generator=g, device=dev)
+    x = F.leaky_relu(3 * F.avg_pool2d(noise, 3, 1, 1), 0.01).contiguous()
+    bound = 1.0 / (9 * c) ** 0.5
+    w = (torch.rand(DSN_HIDDEN, c, 3, 3, generator=g, device=dev) * 2 - 1) * bound
+    b = (torch.rand(DSN_HIDDEN, generator=g, device=dev) * 2 - 1) * bound
+    return x, w, b
+
+
+def direct_float64_moments(x, w, b=None, chunk: int = 64):
+    """The conv's output in float64, ``chunk`` output channels at a time: its
+    batch mean and biased variance."""
+    import torch.nn.functional as F
+
+    means, variances = [], []
+    for o in range(0, w.shape[0], chunk):
+        bias = None if b is None else b[o:o + chunk].double()
+        y = F.conv2d(x.double(), w[o:o + chunk].double(), bias, padding=1)
+        means.append(y.mean(dim=(0, 2, 3)))
+        variances.append(y.var(dim=(0, 2, 3), unbiased=False))
+        del y
+    return torch.cat(means), torch.cat(variances)
+
+
+def dsn_stats_work(b: int, c: int, h: int, w: int, hidden: int = DSN_HIDDEN):
+    """(fp32 operations, bytes) that a head's moments need at least: the
+    patch Gram's distinct entries, multiply-adds of two operations. The Gram
+    is block-Toeplitz: channels a and b's 9 x 9 block is made of their 25 lag
+    correlations over the image (13 where a = b, by symmetry), less border
+    rows and columns: per image 30 rows of W and 30 columns of H products a
+    pair a != b (15 each where a = b). The input and the weight read once.
+    The 512 quadratic forms in float64 are left out."""
+    pairs = c * (c - 1) // 2
+    per_pixel = 25 * pairs + 13 * c
+    border = (30 * pairs + 15 * c) * (h + w)
+    return 2 * b * (h * w * per_pixel + border), 4 * (b * c * h * w + hidden * (9 * c + 1))
+
+
+def host_call_us(fn, calls: int = 100) -> float:
+    """Host microseconds a call of ``fn`` takes to return (what it issues
+    left to the card), the median of five runs of ``calls`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+def phase_dsn_stats(dev) -> list:
+    """[dsn-stats]: the heads' moment kernels at the six head shapes (ODOC's
+    and FAZ's three): mean and variance against float64 direct statistics
+    and the plain twin at rtol 1e-5, the running buffers against the twin's;
+    each head timed per call and back to back beside its bound, the twin and
+    the library composition (cuDNN's conv, then ``torch.batch_norm_stats``).
+    Returns a JSON row a task, its times the sums over a contrast forward's
+    three heads (its launches the main path's)."""
+    from fedicra_torch.ops import dsn_stats_cuda as dsn
+
+    rows = []
+    for task, shapes in DSN_HEAD_SHAPES.items():
+        tot = dict(ms=0.0, loop=0.0, plain=0.0, library=0.0, bound=0.0, err=0.0)
+        for head, (c, side) in enumerate(shapes, 1):
+            x, w, b = dsn_head_inputs(dev, c, side)
+            running = (torch.rand(DSN_HIDDEN, device=dev), torch.rand(DSN_HIDDEN, device=dev) + 0.5)
+            running_plain = tuple(t.clone() for t in running)
+            dsn.reset_launches()
+            mean, var = dsn.conv3x3_batch_moments(x, w, b, running=running)
+            torch.cuda.synchronize()
+            if dsn.launches != {"dsn_stats": 1}:
+                raise AssertionError(f"dsn_stats {task} head{head}: launches {dsn.launches}")
+            want_mean, want_var = direct_float64_moments(x, w, b)
+            plain_mean, plain_var = dsn.conv3x3_batch_moments_plain(x, w, b, running=running_plain)
+            err = max(((mean - want_mean).abs() / want_mean.abs()).max().item(),
+                      ((var - want_var).abs() / want_var).max().item())
+            log(f"[dsn-stats] {task} head{head} ({BATCH} x {c} x {side}^2): max relative gap to "
+                f"float64 {err:.3g} (mean, variance), to the twin "
+                f"{((var - plain_var).abs() / plain_var).max().item():.3g} (variance)")
+            for got, want in ((mean, want_mean), (var, want_var), (mean, plain_mean), (var, plain_var)):
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+            for got, want in zip(running, running_plain):
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+            del want_mean, want_var, plain_mean, plain_var
+            call_ms = cuda_median_ms(lambda: dsn.conv3x3_batch_moments(x, w, b))
+            loop_ms = cuda_loop_ms(lambda: dsn.conv3x3_batch_moments(x, w, b))
+            host_us = host_call_us(lambda: dsn.conv3x3_batch_moments(x, w, b, running=running))
+            plain_ms = cuda_median_ms(lambda: dsn.conv3x3_batch_moments_plain(x, w, b), reps=5)
+            library_ms = cuda_median_ms(lambda: torch.batch_norm_stats(
+                torch.nn.functional.conv2d(x, w, b, padding=1), 1e-5))
+            ops, nbytes = dsn_stats_work(BATCH, c, side, side)
+            bound, by = bound_ms(ops, nbytes)
+            log(f"[dsn-stats] {task} head{head}: {call_ms:.4f} ms per call, {loop_ms:.4f} ms back "
+                f"to back; bound {bound:.4f} ms ({by}: {ops} fp32 operations, {nbytes} bytes; "
+                f"{100 * bound / loop_ms:.1f}% of it back to back); plain twin {plain_ms:.4f} ms; "
+                f"library (cuDNN conv, batch_norm_stats) {library_ms:.4f} ms; "
+                f"host {host_us:.1f} us a call (the wrapper and its launches)")
+            for key, v in (("ms", call_ms), ("loop", loop_ms), ("plain", plain_ms),
+                           ("library", library_ms), ("bound", bound)):
+                tot[key] += v
+            tot["err"] = max(tot["err"], err)
+            del x, w, b
+            torch.cuda.empty_cache()
+        log(f"[dsn-stats] {task} a contrast forward's three heads: {tot['ms']:.4f} ms per call, "
+            f"{tot['loop']:.4f} ms back to back, bound {tot['bound']:.4f} ms, plain twin "
+            f"{tot['plain']:.4f} ms, library {tot['library']:.4f} ms")
+        rows.append(dict(name="dsn_stats" if task == "odoc" else f"dsn_stats[{task}]", route="cuda",
+                         source="fedicra_torch/csrc/dsn_stats.cu",
+                         replaces="none: fedicra_tpu/models/blocks.py DSNHead's pass 1 under jit",
+                         launches=None, max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain"],
+                         bound_ms=tot["bound"], bound_by="operations", library_ms=tot["library"]))
+    return rows
+
+
 def phase_small_agreement(dev):
     """The objective (tree term on), then ``treeenergy_add`` on the same
     weights, on the card against the CPU (plain twins). The launch counts
@@ -1260,7 +1396,8 @@ def dtype_probe(model):
         record.setdefault(name, set()).add(str(t.dtype).replace("torch.", ""))
 
     def hook(module, args, out):
-        seen("logits", out["logits"])
+        if "logits" in out:  # a contrast forward returns only features and heatmaps
+            seen("logits", out["logits"])
         for key in ("features", "de", "aux"):
             for t in out.get(key, []):
                 seen(key, t)
@@ -1289,7 +1426,7 @@ def phase_round(dev, tag: str, treeenergy_add: bool = False, **setup):
     ``treeenergy_add`` it then takes one step of that objective
     (``treeenergy_add_step``)."""
     from fedicra_torch.models.params_filters import is_dsn_head, is_head, is_pcs
-    from fedicra_torch.ops import gated_crf_cuda
+    from fedicra_torch.ops import dsn_stats_cuda, gated_crf_cuda
 
     cfg, cid, model, state, round_fn, batches = main_path_setup(dev, **setup)
     iters, rep = cfg.iters, cfg.rep_iters
@@ -1314,6 +1451,7 @@ def phase_round(dev, tag: str, treeenergy_add: bool = False, **setup):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_kernel_counts()
+    dsn_stats_cuda.reset_launches()
     t0 = time.perf_counter()
     try:
         new, metrics = round_fn(state, batches, cid, on_step=on_step)
@@ -1322,6 +1460,11 @@ def phase_round(dev, tag: str, treeenergy_add: bool = False, **setup):
             remove_probe()
     torch.cuda.synchronize()
     counts = _kernel_counts()
+    # 3 DSN heads in each of the K - 1 contrast forwards a step, none in the step's own forward
+    dsn_launches = dsn_stats_cuda.launches["dsn_stats"]
+    if dsn_launches != 3 * (cfg.num_clients - 1) * iters:
+        raise AssertionError(f"[{tag}] {dsn_launches} DSN moment launches in {iters} steps, "
+                             f"expected {3 * (cfg.num_clients - 1) * iters}")
     launches = {"gated_crf": counts["gated_crf"]}
     by_dtype = dict(gated_crf_cuda.launches_by_dtype)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1333,7 +1476,8 @@ def phase_round(dev, tag: str, treeenergy_add: bool = False, **setup):
         log(f"[{tag}] {k} per step {metrics[k].float().cpu().tolist()} ({metrics[k].dtype})")
     log(f"[{tag}] step ms {[round(float(s), 3) for s in steps]}")
     log(f"[{tag}] max_memory_allocated {peak:.3f} GiB")
-    log(f"[{tag}] kernel launches {counts} (gated CRF by y dtype {by_dtype})")
+    log(f"[{tag}] kernel launches {counts} (gated CRF by y dtype {by_dtype}); "
+        f"DSN moments {dsn_launches}")
 
     if losses.shape != (iters,) or not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite or misshapen losses {losses}")
@@ -1378,7 +1522,8 @@ def phase_round(dev, tag: str, treeenergy_add: bool = False, **setup):
         raise AssertionError(f"current_iter {new.current_iter}")
     if treeenergy_add:
         treeenergy_add_step(dev, model, state, batches, cid, cfg)
-    return dict(launches=counts, losses=losses.tolist(), steps=[float(x) for x in steps], peak=peak)
+    return dict(launches={**counts, "dsn_stats": dsn_launches}, losses=losses.tolist(),
+                steps=[float(x) for x in steps], peak=peak)
 
 
 def plain_route_first_step(model, state, generator_state, batches, cid: int, cfg,
@@ -2617,13 +2762,15 @@ def main() -> int:
     gaussian_row = phase_gaussian_filter(dev)
     phase_tree_plain(dev)
     tree_rows = phase_tree_kernels(dev)
+    dsn_rows = phase_dsn_stats(dev)
+    torch.cuda.empty_cache()
     phase_small_agreement(dev)
     phase_round(dev, "tree-off", tree_loss_weight=0.0, iters=2, rep_iters=1)
     torch.cuda.empty_cache()
     main_run = phase_round(dev, "main", treeenergy_add=True)
-    for row in [gated_row, *tree_rows]:
+    for row in [gated_row, *tree_rows, dsn_rows[0]]:
         row["launches"] = main_run["launches"][row["name"]]
-    rows = [gated_row, gaussian_row, *tree_rows]
+    rows = [gated_row, gaussian_row, *tree_rows, *dsn_rows]
     torch.cuda.empty_cache()
     phase_main_amp(dev, main_run)
     torch.cuda.empty_cache()

@@ -53,6 +53,16 @@ def _contrast_loss(
     forward uses the *own* cid (the reference's ``emb_idx`` falsy quirk).
     The forwards are not batched into one K*B batch: that would pool their
     BatchNorm statistics.
+
+    Only the bottleneck heatmap is read from each, so in train mode each
+    is the model's ``heatmaps_only`` forward: the encoder and the decoder's
+    up blocks run as always, and the DSN heads only advance their running
+    statistics and draw their dropout masks; ``out_conv``, the heads'
+    outputs and the logits, which nothing reads, are not computed. The
+    heatmaps, the generator's state and every running statistic are a full
+    forward's (the heads' to float rounding), so the loss and everything
+    after it are too. (In eval mode the forwards run in full: there the
+    heads have no effect to keep.)
     """
     K = cfg.num_clients
     batch = images.shape[0]
@@ -63,7 +73,8 @@ def _contrast_loss(
                 continue
             emb = torch.full((batch,), cid if k == 0 else k, dtype=torch.long, device=images.device)
             with torch.no_grad():
-                hm_k = model(images, emb_idx=emb, generator=generator)["heatmaps"][-1]
+                hm_k = model(images, emb_idx=emb, generator=generator,
+                             heatmaps_only=model.training)["heatmaps"][-1]
             mses.append(batch_mean((hm_own - hm_k) ** 2))
         # one sum in the heatmaps' dtype, as JAX's (bf16 under AMP)
         return -torch.stack(mses).sum() / (K - 1)

@@ -19,12 +19,13 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import dsn_stats_cuda
 from ..parallel.data_axis import batch_draw, current_shard
 
 LRELU_SLOPE = 0.01  # torch nn.LeakyReLU default negative_slope
@@ -75,6 +76,29 @@ class Conv(nn.Conv2d):
         return out
 
 
+def dropout_keep(
+    shape: Sequence[int],
+    p: float,
+    generator: Optional[torch.Generator],
+    *,
+    device: torch.device,
+    dtype: torch.dtype,
+    channels: bool = False,
+) -> torch.Tensor:
+    """The keep mask that ``dropout`` draws for an input of ``shape``, dtype
+    and device: ones with probability 1 - p, drawn by the batch's rows
+    (``batch_draw``); ``channels=True`` draws one value an image and channel,
+    (B, C, 1, 1)."""
+    if channels:
+        shape = tuple(shape[:2]) + (1, 1)
+
+    def draw(shape):
+        keep = torch.empty(shape, device=device, dtype=dtype)
+        return keep.bernoulli_(1.0 - p, generator=generator)
+
+    return batch_draw(draw, shape)
+
+
 def dropout(
     x: torch.Tensor,
     p: float,
@@ -85,13 +109,8 @@ def dropout(
     """Inverted dropout; ``channels=True`` drops whole channels (Dropout2d)."""
     if p == 0.0:
         return x
-    shape = x.shape[:2] + (1, 1) if channels else x.shape
-
-    def draw(shape):
-        keep = torch.empty(shape, device=x.device, dtype=x.dtype)
-        return keep.bernoulli_(1.0 - p, generator=generator)
-
-    return x * batch_draw(draw, shape) / (1.0 - p)
+    keep = dropout_keep(x.shape, p, generator, device=x.device, dtype=x.dtype, channels=channels)
+    return x * keep / (1.0 - p)
 
 
 class BatchNorm(nn.Module):
@@ -243,8 +262,21 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> to
 class DSNHead(nn.Module):
     """Deep-supervision head: Conv3x3 -> BN -> ReLU -> Dropout2d -> Conv1x1 (no bias).
 
-    Written plainly, without the TPU version's row tiling. fp32 under any
-    compute dtype: JAX's head convolves by ``lax`` itself, out of AMP's reach.
+    ``forward`` is written plainly, without the TPU version's row tiling.
+    fp32 under any compute dtype: JAX's head convolves by ``lax`` itself,
+    out of AMP's reach.
+
+    ``advance_stats`` is the head's statistics-only forward, for a caller
+    that reads none of its outputs (the contrast forwards, which read only
+    the heatmaps). A train-mode forward has two effects besides its output,
+    and it keeps both: the BatchNorm's running mean and variance advance by
+    the batch mean and biased variance of the 3x3 conv's output, computed
+    from the conv's input without forming that output
+    (``ops/dsn_stats_cuda.py``), and the Dropout2d keep mask is drawn from
+    ``generator`` as ``forward`` draws it, then dropped. The conv's
+    512-channel output, the normalisation, ReLU, the mask's product and the
+    1x1 conv are not computed. The JAX head's two passes do the same under
+    ``jit`` when only its statistics are used: XLA drops the second.
     """
 
     def __init__(self, in_ch: int, num_classes: int, hidden: int = 512, drop_rate: float = 0.1):
@@ -259,6 +291,20 @@ class DSNHead(nn.Module):
         if self.training:
             h = dropout(h, self.drop_rate, generator, channels=True)
         return self.out(h)
+
+    def advance_stats(self, x: torch.Tensor, generator=None) -> None:
+        """The train-mode forward's running statistics and dropout draw, and
+        nothing else; the caller holds the module in train mode with grad
+        off (``_UNetLC.forward`` checks it)."""
+        bn = self.bn
+        # a 1-channel model runs channels-last (its NCHW input is both), and
+        # the moments read NCHW planes: one copy there, none otherwise
+        dsn_stats_cuda.conv3x3_batch_moments(
+            x.contiguous(), self.conv.weight, self.conv.bias,
+            running=(bn.running_mean, bn.running_var), momentum=bn.momentum)
+        if self.drop_rate != 0.0:
+            dropout_keep((x.shape[0], self.conv.out_channels), self.drop_rate, generator,
+                         device=x.device, dtype=bn.weight.dtype, channels=True)
 
 
 @torch.no_grad()

@@ -20,6 +20,7 @@ from torch import nn
 
 from ..ops.activations import sigmoid
 from ..parallel.data_axis import batch_draw
+from ..utils.profiling import annotate
 from .blocks import ConvBlock, DSNHead, DownBlock, UpBlock, conv
 
 DEFAULT_FEATURES = (16, 32, 64, 128, 256)
@@ -170,7 +171,18 @@ class Decoder(nn.Module):
 
 class DecoderMultiHead(Decoder):
     """The decoder with ``num_heads`` DSN heads on de2/de3/de4 (1: Decoder_Head,
-    2: Decoder_MultiHead_Two, 3: the FedICRA model's Decoder_MultiHead)."""
+    2: Decoder_MultiHead_Two, 3: the FedICRA model's Decoder_MultiHead).
+
+    ``forward(..., heatmaps_only=True)`` is the decoder's statistics-only
+    forward (train mode, grad off), for a caller that reads only the
+    encoder's heatmaps and so none of the decoder's outputs: the four up
+    blocks run as always, since their BatchNorm statistics advance;
+    ``out_conv`` is skipped (it has no statistics and draws nothing); each
+    head runs ``DSNHead.advance_stats``, which keeps its running statistics
+    and its Dropout2d draw and computes nothing else.
+    The generator's state after it is a full forward's, and so are the
+    running statistics, to float rounding; it returns only ``de``.
+    """
 
     def __init__(
         self,
@@ -188,7 +200,13 @@ class DecoderMultiHead(Decoder):
                 DSNHead(sources[i], num_classes, drop_rate=dsn_dropout),
             )
 
-    def forward(self, feature, generator=None):
+    def forward(self, feature, generator=None, heatmaps_only: bool = False):
+        if heatmaps_only:
+            de = self._up(feature, generator)
+            for i in range(self.num_heads):
+                with annotate("fedicra.contrast.head_stats", head=i + 1):
+                    getattr(self, f"dsn_head{i + 1}").advance_stats(de[i + 1], generator)
+            return {"de": de}
         out = super().forward(feature, generator)
         sources = out["de"][1:]
         out["aux"] = [
@@ -382,7 +400,10 @@ class _UNetLC(nn.Module):
 
     ``forward(x, emb_idx)`` returns NHWC views: ``logits``, ``aux``, ``de``,
     ``features`` and ``heatmaps`` (None except at PCS stages, where it is
-    (B, 1, 1, C)).
+    (B, 1, 1, C)). With ``heatmaps_only=True`` (train mode, grad off; it
+    raises otherwise) the caller states that it reads only ``features`` and
+    ``heatmaps``: the decoder runs its statistics-only forward, and the
+    result has no ``logits``, ``aux`` or ``de``.
     """
 
     num_heads = 3
@@ -405,8 +426,19 @@ class _UNetLC(nn.Module):
             num_classes, num_heads=self.num_heads, dsn_dropout=dsn_dropout
         )
 
-    def forward(self, x: torch.Tensor, emb_idx=None, generator: Optional[torch.Generator] = None):
+    def forward(self, x: torch.Tensor, emb_idx=None, generator: Optional[torch.Generator] = None,
+                heatmaps_only: bool = False):
+        if heatmaps_only and (not self.training or torch.is_grad_enabled()):
+            # only there do the skipped outputs leave no trace: the running
+            # statistics advance and the dropout draws, and nothing is differentiated
+            raise RuntimeError(
+                "a statistics-only forward needs train mode and grad off "
+                f"(training={self.training}, grad enabled={torch.is_grad_enabled()})")
         feature, heatmaps = self.encoder(_nchw(x), emb_idx=emb_idx, generator=generator)
+        if heatmaps_only:
+            self.decoder(feature, generator, heatmaps_only=True)
+            return {"features": [_nhwc(t) for t in feature],
+                    "heatmaps": [None if h is None else _nhwc(h) for h in heatmaps]}
         return _outputs(self.decoder(feature, generator), feature, heatmaps)
 
 

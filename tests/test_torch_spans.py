@@ -30,6 +30,7 @@ sys.path.insert(0, str(ROOT))
 
 STEP_PARTS = ("fedicra.step.forward", "fedicra.step.contrast", "fedicra.step.tree_term",
               "fedicra.step.crf_term", "fedicra.step.backward")
+HEAD_STATS = "fedicra.contrast.head_stats"  # each DSN head of each contrast forward
 ROUND_SPANS = ("fedicra.round.load_state", "fedicra.round.split_state")
 # the readers this file's spans feed, and the spans each sums
 SPAN_READERS = {
@@ -110,9 +111,15 @@ def test_round_spans_nest_as_the_step_runs():
         forwards = {s["name"]: sum(_holds(s, t) for t in stamps) for s in parts}
         assert forwards["fedicra.step.forward"] == 1
         assert forwards["fedicra.step.contrast"] == cfg.num_clients - 1
+        contrast = next(s for s in parts if s["name"] == "fedicra.step.contrast")
+        heads = [s for s in spans if s["parent"] == contrast["seq"]]
+        assert [s["name"] for s in heads] == [HEAD_STATS] * 3 * (cfg.num_clients - 1)
+        assert [s["ids"] for s in heads] == [{**step["ids"], "head": h}
+                                             for h in (1, 2, 3) * (cfg.num_clients - 1)]
     # every model forward of the round lies in a forward or contrast span
     assert len(stamps) == len(steps) * cfg.num_clients
-    assert len(spans) == len(ROUND_SPANS) + len(setups) + len(steps) * (1 + len(STEP_PARTS))
+    assert len(spans) == len(ROUND_SPANS) + len(setups) + len(steps) * (
+        1 + len(STEP_PARTS) + 3 * (cfg.num_clients - 1))
     assert profiling.counters() == {}  # host syncs are counted on a card only
 
 
@@ -216,7 +223,7 @@ def _annotated_names():
 def test_span_names_match_no_kernel_name_list():
     names = _annotated_names()
     assert {*STEP_PARTS, *ROUND_SPANS, "fedicra.step", "fedicra.round.phase_setup",
-            "fedicra.tree.filter_backward"} == names
+            "fedicra.tree.filter_backward", HEAD_STATS} == names
     substrings = _kernel_name_lists()
     assert {"gated_crf", "conv", "cat", "fill", "index", "reduce"} <= substrings
     assert not [(n, s) for n in names for s in substrings if s in n.lower()]
