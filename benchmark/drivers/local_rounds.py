@@ -1,6 +1,10 @@
-"""The local-rounds traffic: FedICRA's local rounds, client after client.
+"""The local-rounds traffic: a strategy's local rounds, client after client.
 
-What a federated run's fits do, without the merges. Each client has its
+What a federated run's fits do, without the merges. The model is the
+configuration's ``model``, found as ``reference/models/<model>.py``: its
+parameters, the port's widths, the reference's forward and the work count
+all come from that module, and the round's phases from the configuration's
+strategy (``reference.fedicra_round.phases``). Each client has its
 own ``ClientState`` (weights, BatchNorm statistics, iteration count and
 dropout generator) and its own pool of one round's batches (``iters`` x
 ``batch_size`` distinct images in its supervision form), made on the device
@@ -36,8 +40,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from ..harness import check, inputs, trace, work
-from ..reference.fedicra_round import is_dsn_head, is_head, is_pcs, reference_round
-from ..reference.unet_lc import param_specs
+from ..reference import models
+from ..reference.fedicra_round import phases, reference_round
 
 
 def cycle(num_clients: int):
@@ -46,25 +50,10 @@ def cycle(num_clients: int):
     return [*range(1, num_clients), 0]
 
 
-def reference_cfg(config: dict) -> dict:
-    t, task = config["train"], config["task"]
-    return dict(num_classes=task["num_classes"], num_clients=task["num_clients"],
-                iters=t["iters"], rep_iters=t["rep_iters"], base_lr=t["base_lr"],
-                max_iterations=t["max_iterations"], start_iter=0, alpha=t["alpha"], widths=config["widths"],
-                tree_loss_weight=t["tree_loss_weight"], gatecrf_weight=t["gatecrf_weight"],
-                gatecrf_radius=t["gatecrf_radius"])
-
-
-def live_groups(names, config: dict):
-    """(head, body): the leaves each phase of the round trains."""
-    idle_dsn = config["train"]["tree_loss_weight"] == 0.0
-    trainable = [n for n in names if not is_pcs(n) and not (idle_dsn and is_dsn_head(n))]
-    return [n for n in trainable if is_head(n)], [n for n in trainable if not is_head(n)]
-
-
-def specs(config: dict):
-    task = config["task"]
-    return param_specs(task["in_chns"], task["num_classes"], task["num_clients"], config["widths"])
+def round_phases(config: dict):
+    """(label, leaves it trains, first step, end) of each phase of a round."""
+    model = models.load(config["model"])
+    return phases(model, config, [n for n, _, _ in model.param_specs(config)])
 
 
 def pool(config: dict, traffic: dict, seed: int, cid: int, device):
@@ -84,7 +73,8 @@ class Program:
         from fedicra_torch.engine.trainer import ClientState, make_round_fn
         from fedicra_torch.models import net_factory
 
-        task, t, widths = config["task"], config["train"], config["widths"]
+        task, t = config["task"], config["train"]
+        family = models.load(config["model"])
         if precision["autocast"] not in (None, "bfloat16"):
             raise ValueError(f"the port autocasts to bfloat16 or not at all: {precision}")
         self.cfg = TrainConfig.for_task(task["img_class"], model=config["model"],
@@ -94,9 +84,8 @@ class Program:
                               "gatecrf_weight", "gatecrf_radius", "alpha", "iters", "rep_iters",
                               "base_lr", "max_iterations")})
         self.model = net_factory(config["model"], in_chns=task["in_chns"], class_num=task["num_classes"],
-                                 num_clients=task["num_clients"], pcs_num=widths["pcs_stages"],
-                                 dropout=widths["dropout"], dsn_dropout=widths["dsn_dropout"]).to(device)
-        ref_specs = specs(config)
+                                 **family.port_kwargs(config)).to(device)
+        ref_specs = family.param_specs(config)
         got = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
         want = {n: tuple(s) for n, s, _ in ref_specs}
         if got != want:
@@ -112,8 +101,8 @@ class Program:
         self.starts = [s.generator.get_state() for s in self.states]
         self.pools = [pool(config, traffic, seed, cid, device) for cid in range(task["num_clients"])]
         self.round_fn = make_round_fn(self.model, self.cfg, device=device)
-        self.n_head = t["iters"] - t["rep_iters"]
-        self.head, self.body = live_groups(list(self.weights), config)
+        self.phases = round_phases(config)
+        self.labels = [label for label, _, lo, hi in self.phases for _ in range(lo, hi)]
 
     def next_round(self, cid: int, on_step):
         """Client ``cid``'s round from its set-up state: the state it
@@ -128,13 +117,13 @@ class Program:
         optimizer (leaf norms), and each leaf's change over the round, from
         the state the round returns."""
         losses, grads = [], {}
+        first = {lo: live for _, live, lo, _ in self.phases}
 
         def on_step(j, metrics):
             losses.append(metrics["total_loss"])
-            if j in (0, self.n_head):
+            if j in first:
                 params = dict(self.model.named_parameters())
-                live = self.head if j == 0 else self.body
-                grads[j] = {n: params[n].grad.norm() for n in live if params[n].grad is not None}
+                grads[j] = {n: params[n].grad.norm() for n in first[j] if params[n].grad is not None}
 
         new = self.next_round(0, on_step).params
         return {"losses": [float(x) for x in losses],
@@ -145,34 +134,36 @@ class Program:
 def reference_readings(config: dict, traffic: dict, seed: int, device, round_bits: Optional[int] = None,
                        fault: Optional[str] = None) -> dict:
     """The reference's client 0 first round on the same seed's inputs."""
-    weights = inputs.draw_weights(specs(config), seed, device)
+    model = models.load(config["model"])
+    weights = inputs.draw_weights(model.param_specs(config), seed, device)
     data = pool(config, traffic, seed, 0, device)
-    n_head = config["train"]["iters"] - config["train"]["rep_iters"]
-    out = reference_round(weights, data["image"], data["label"], 0, reference_cfg(config),
+    out = reference_round(model, config, weights, data["image"], data["label"], 0,
                           inputs.generator(device, seed, "dropout", 0), round_bits=round_bits,
-                          fault=fault, record_grads=(0, n_head))
+                          fault=fault, record_grads=[lo for _, _, lo, _ in round_phases(config)])
     out["change"] = {n: float((p - weights[n]).norm()) for n, p in out.pop("params").items()}
     return out
 
 
 def compare(program: dict, reference: dict) -> Dict[str, float]:
-    """loss: the worst loss gap over the head steps and the body phase's
-    first step; grad: the worst leaf's gradient gap at each phase's first
-    step; change: the worst moving leaf's change gap over the round.
+    """loss: the worst loss gap over the steps up to the last phase's first
+    step (FedICRA: the head steps and the body phase's first step; one full
+    phase: its first step); grad: the worst leaf's gradient gap at each
+    phase's first step; change: the worst moving leaf's change gap over the
+    round.
 
-    The losses after the body phase's first update are not compared: AdamW's
-    first body step moves each weight by about the rate times the sign of
-    its gradient, and the weights whose gradients are near zero take either
-    sign on float32 rounding, so the later losses differ by ~1e-2 between
-    two sound runs (0.6% at 32^2 on the CPU)."""
-    first_body = max(reference["grads"])  # the grads are recorded at each phase's first step
+    The losses after the last phase's first update are not compared: AdamW's
+    first step in a phase moves each weight by about the rate times the sign
+    of its gradient, and the weights whose gradients are near zero take
+    either sign on float32 rounding, so the later losses differ by ~1e-2
+    between two sound runs (0.6% at 32^2 on the CPU)."""
+    last_first = max(reference["grads"])  # the grads are recorded at each phase's first step
     grad = max(check.worst_leaf(program["grads"].get(j, {}), ref)
                for j, ref in reference["grads"].items())
     moving = check.moving_leaves(list(reference["grads"].values()))
     change = check.worst_leaf({n: program["change"][n] for n in moving},
                               {n: reference["change"][n] for n in moving})
-    return {"loss": check.loss_gap(program["losses"][:first_body + 1],
-                                   reference["losses"][:first_body + 1]),
+    return {"loss": check.loss_gap(program["losses"][:last_first + 1],
+                                   reference["losses"][:last_first + 1]),
             "grad": grad, "change": change}
 
 
@@ -181,8 +172,7 @@ def _stamp_round(prog: "Program", cid: int, stamps: list, sync, after_step=None)
     taken after a synchronise."""
     def on_step(j, metrics):
         sync()
-        stamps.append((time.perf_counter(), "head" if j < prog.n_head else "body",
-                       float(metrics["total_loss"])))
+        stamps.append((time.perf_counter(), prog.labels[j], float(metrics["total_loss"])))
         if after_step is not None:
             after_step(j)
 
@@ -221,10 +211,9 @@ def run(cell: dict, seed: int, seconds: float, traced: bool, device, t_start: fl
     failed = sum(1 for s in stamps if not math.isfinite(s[2]))
     times = [b[0] - a[0] for a, b in zip([(t0, None, None)] + stamps[:-1], stamps)]
     record = {
-        "step_s": {"head": [t for t, s in zip(times, stamps) if s[1] == "head"],
-                   "body": [t for t, s in zip(times, stamps) if s[1] == "body"]},
-        "flops": work.step_flops(config["task"]["in_chns"], config["task"]["num_classes"], K,
-                                 config["task"]["img_size"], batch, config["widths"]),
+        "step_s": {label: [t for t, s in zip(times, stamps) if s[1] == label]
+                   for label, _, _, _ in prog.phases},
+        "flops": work.step_flops(models.load(config["model"]), config),
         "peak_flops": precision["peak_flops"],
         "batch": batch, "img_size": config["task"]["img_size"],
         "num_classes": config["task"]["num_classes"],

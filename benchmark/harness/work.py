@@ -1,5 +1,5 @@
-"""The work a step needs, counted from the configuration's shapes and
-widths, and the card's memory bandwidth.
+"""The work a step needs, counted from the configuration's model module,
+shapes and widths, and the card's memory bandwidth.
 
 The counts never read what the port runs, so they read the same work
 whatever implements it. The FLOP peak of each precision is in its file,
@@ -9,71 +9,54 @@ data sheet, at its full 700 W.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from types import ModuleType
+from typing import Dict, Tuple
 
-from ..reference.unet_lc import check_widths, head_sources
+from ..reference.fedicra_round import contrast_forwards, phases
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_PEAK_FLOPS = 67e12  # what the tree kernels' operations are held to
 
 
-def model_convs(in_chns: int, num_classes: int, num_clients: int, img: int,
-                widths: dict) -> List[Tuple[str, int, int, int, int]]:
-    """Every convolution of one ``unet_lc_multihead`` forward of one image
-    at the configuration's ``widths``: (name, C_in, C_out, kernel, output
-    pixels)."""
-    check_widths(widths)
-    f, hidden = widths["features"], widths["dsn_hidden"]
-    px = [(img >> s) ** 2 for s in range(5)]
-    convs = [("encoder.in_conv.conv1", in_chns, f[0], 3, px[0]),
-             ("encoder.in_conv.conv2", f[0], f[0], 3, px[0])]
-    for i in range(1, 5):
-        convs += [(f"encoder.down{i}.conv1", f[i - 1], f[i], 3, px[i]),
-                  (f"encoder.down{i}.conv2", f[i], f[i], 3, px[i])]
-    hid = max(f[4] // 16, 1)
-    convs += [("pcs.fc1_a", num_clients, f[4], 1, 1), ("pcs.fc1_b", f[4], f[4], 1, 1),
-              ("pcs.fc2_a.avg", 2 * f[4], hid, 1, 1), ("pcs.fc2_a.max", 2 * f[4], hid, 1, 1),
-              ("pcs.fc2_b.avg", hid, f[4], 1, 1), ("pcs.fc2_b.max", hid, f[4], 1, 1)]
-    for i in range(1, 5):
-        low, skip = f[5 - i], f[4 - i]
-        convs += [(f"decoder.up{i}.conv1x1", low, skip, 1, px[5 - i]),
-                  (f"decoder.up{i}.conv1", 2 * skip, skip, 3, px[4 - i]),
-                  (f"decoder.up{i}.conv2", skip, skip, 3, px[4 - i])]
-    convs.append(("decoder.out_conv", f[0], num_classes, 3, px[0]))
-    for i in head_sources(widths):
-        convs += [(f"decoder.dsn_head{i}.conv", f[3 - i], hidden, 3, px[3 - i]),
-                  (f"decoder.dsn_head{i}.out", hidden, num_classes, 1, px[3 - i])]
-    return convs
+def conv_flops(c_in: int, c_out: int, k: int, pixels: int, groups: int = 1) -> int:
+    """A convolution's multiply-adds, two FLOPs each (bias adds not counted):
+    each output reads C_in / groups input channels over its k x k window."""
+    return 2 * (c_in // groups) * c_out * k * k * pixels
 
 
-def conv_flops(c_in: int, c_out: int, k: int, pixels: int) -> int:
-    """A convolution's multiply-adds, two FLOPs each (bias adds not counted)."""
-    return 2 * c_in * c_out * k * k * pixels
+def forward_flops(model: ModuleType, config: dict) -> int:
+    """One image's forward through the model module ``model``
+    (``reference/models/``) at the configuration's widths and size."""
+    return sum(conv_flops(*c[1:]) for c in model.convs(config))
 
 
-def forward_flops(in_chns: int, num_classes: int, num_clients: int, img: int, widths: dict) -> int:
-    return sum(conv_flops(*c[1:]) for c in model_convs(in_chns, num_classes, num_clients, img, widths))
+def step_flops(model: ModuleType, config: dict) -> Dict[str, int]:
+    """The model FLOPs of a step of each phase of the round, by the phase's
+    label (``reference.fedicra_round.phases``), counted from the model
+    module's convolutions.
 
-
-def step_flops(in_chns: int, num_classes: int, num_clients: int, img: int, batch: int,
-               widths: dict) -> Dict[str, int]:
-    """The model FLOPs of a head step and of a body step of FedICRA's round.
-
-    Both run the client's own forward and K - 1 contrast forwards with no
-    gradient. A head step adds the out conv's weight gradient. A body step
-    adds the backward of the own forward: each convolution's input gradient
-    but the first's and PCS's client branch (which reads no activation), and
-    each trainable convolution's weight gradient (all but the out conv and
-    PCS, which do not train in the body phase)."""
-    convs = model_convs(in_chns, num_classes, num_clients, img, widths)
+    Every step runs the client's own forward and the contrast term's
+    forwards with no gradient (K - 1 under FedICRA with a client-conditioned
+    model). A step that trains only the head (FedICRA's head phase) adds its
+    weight gradient: the out conv reads the last activation, so no input
+    gradient is needed. Any other step adds the backward of its own forward:
+    each convolution's input gradient but the first's and those of the
+    module's ``CONSTANT_INPUT`` (which read no activation: PCS's client
+    branch), and the weight gradient of each convolution the phase trains."""
+    convs = model.convs(config)
+    batch = config["train"]["batch_size"]
     fwd = sum(conv_flops(*c[1:]) for c in convs)
-    no_input_grad = ("encoder.in_conv.conv1", "pcs.fc1_a", "pcs.fc1_b")
-    frozen = ("decoder.out_conv", "pcs.")
+    no_input_grad = {convs[0][0], *getattr(model, "CONSTANT_INPUT", ())}
     input_grad = sum(conv_flops(*c[1:]) for c in convs if c[0] not in no_input_grad)
-    weight_grad = sum(conv_flops(*c[1:]) for c in convs if not c[0].startswith(frozen))
-    head_wgrad = conv_flops(*next(c for c in convs if c[0] == "decoder.out_conv")[1:])
-    return {"head": batch * (num_clients * fwd + head_wgrad),
-            "body": batch * (num_clients * fwd + input_grad + weight_grad)}
+    names = [n for n, _, _ in model.param_specs(config)]
+    out = {}
+    for label, live, _, _ in phases(model, config, names):
+        live = set(live)
+        weight_grad = sum(conv_flops(*c[1:]) for c in convs if f"{c[0]}.weight" in live)
+        head_only = all(model.is_head(n) for n in live)
+        out[label] = batch * ((1 + contrast_forwards(model, config)) * fwd + weight_grad
+                              + (0 if head_only else input_grad))
+    return out
 
 
 def bound_ms(ops: float, nbytes: float, peak_flops: float = FP32_PEAK_FLOPS) -> float:

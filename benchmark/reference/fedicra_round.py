@@ -1,10 +1,15 @@
-"""FedICRA's local round with the "ours" objective, in plain PyTorch.
+"""FedICRA's local round, and the other strategies' local round, in plain
+PyTorch.
 
 The reference for the local-rounds cells. One round of a client, as the
-FedICRA paper and the reference's ``flower_runner.py`` train it:
+FedICRA paper and the reference's ``flower_runner.py`` train it. The model
+is the configuration's ``model`` module (``reference/models/``); the
+objective is the configuration's ``train.procedure``:
 
-- loss = pCE + tree energy (``tree_loss_weight``) + ``gatecrf_weight`` x
-  gated CRF + ``alpha`` x contrast;
+- "ours": loss = pCE + tree energy (``tree_loss_weight``) + ``gatecrf_weight``
+  x gated CRF + ``alpha`` x contrast;
+- "pce": loss = pCE, + ``alpha`` x contrast under FedICRA with a
+  client-conditioned model;
 - pCE: cross-entropy averaged over the labelled pixels (label
   ``num_classes`` marks an unlabelled one);
 - tree energy: ``tree_chain.multi_scale_tree_energy`` on the unlabelled
@@ -14,16 +19,20 @@ FedICRA paper and the reference's ``flower_runner.py`` train it:
   [column / 6, row / 6, image / 0.1], over the offsets of a (2r + 1)^2
   window but the centre, times 1 - <y(q), y(q + o)>, y the softmax, y and
   f zero outside the image, summed and divided by B H W;
-- contrast: -(1 / (K - 1)) sum over the other clients k of the mean
-  squared gap between the bottleneck's PCS heatmap under this client's
-  one-hot and, with no gradient, under client k's (the reference code uses
-  this client's own one-hot where k is 0), each of those K - 1 forwards in
-  train mode with its own dropout draws;
+- contrast (FedICRA, a model that gives the PCS ``heatmap``): -(1 / (K -
+  1)) sum over the other clients k of the mean squared gap between the
+  bottleneck's PCS heatmap under this client's one-hot and, with no
+  gradient, under client k's (the reference code uses this client's own
+  one-hot where k is 0), each of those K - 1 forwards in train mode with
+  its own dropout draws;
 - AdamW (betas 0.9 / 0.999, eps 1e-8, weight decay 1e-2), started afresh
-  for each phase: the first ``iters - rep_iters`` steps train only the out
-  conv (the head), the last ``rep_iters`` every parameter but the head and
-  PCS; PCS never trains, and the deep-supervision heads only while the tree
-  term is on. The rate of step j is base_lr (1 - (start + j) / max_iter)^0.9.
+  for each phase. The phases are the strategy's: under FedICRA the first
+  ``iters - rep_iters`` steps train only the out conv (the head), the last
+  ``rep_iters`` every other trainable parameter; under any other strategy
+  one phase of ``iters`` steps trains every trainable parameter. PCS never
+  trains, and the deep-supervision heads only while the tree term reads
+  them ("ours" with the tree term on). The rate of step j is base_lr (1 -
+  (start + j) / max_iter)^0.9.
 
 ``fault="half_batch"`` trains each step on the first half of its batch:
 one of the faults the comparison has to catch.
@@ -32,13 +41,14 @@ one of the faults the comparison has to catch.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from types import ModuleType
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from .models import never
 from .tree_chain import multi_scale_tree_energy
-from .unet_lc import UNetLCMultiHead
 
 BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -73,75 +83,100 @@ def gated_crf(probs: torch.Tensor, image: torch.Tensor, radius: int) -> torch.Te
     return (total / (b * h * w)).float()
 
 
-def ours_loss(model: UNetLCMultiHead, p, images, labels, cid: int, cfg: dict, generator,
-              stats: Optional[dict] = None) -> torch.Tensor:
-    C, K = cfg["num_classes"], cfg["num_clients"]
+def fedicra(config: dict) -> bool:
+    return config["train"]["strategy"] == "FedICRA"
+
+
+def contrast_forwards(model: ModuleType, config: dict) -> int:
+    """The no-grad forwards of the contrast term a step runs: K - 1 under
+    FedICRA with a model that gives the PCS heatmap, else none."""
+    if fedicra(config) and getattr(model, "HEATMAP", False):
+        return config["task"]["num_clients"] - 1
+    return 0
+
+
+def phases(model: ModuleType, config: dict, names) -> List[Tuple[str, List[str], int, int]]:
+    """(label, the leaves it trains, first step, end) of each phase of the
+    round, over the parameter ``names``."""
+    t = config["train"]
+    is_pcs, is_dsn_head = getattr(model, "is_pcs", never), getattr(model, "is_dsn_head", never)
+    dsn_idle = t["procedure"] != "ours" or t["tree_loss_weight"] == 0.0
+    trainable = [n for n in names if not is_pcs(n) and not (dsn_idle and is_dsn_head(n))]
+    if not fedicra(config):
+        return [("full", trainable, 0, t["iters"])]
+    n_head = t["iters"] - t["rep_iters"]
+    return [("head", [n for n in trainable if model.is_head(n)], 0, n_head),
+            ("body", [n for n in trainable if not model.is_head(n)], n_head, t["iters"])]
+
+
+def _contrast(forward, K: int, p, images, heat, cid: int, generator) -> torch.Tensor:
     batch = images.shape[0]
-    client = torch.full((batch,), cid, dtype=torch.long, device=images.device)
-    logits, aux, heat = model(p, images, client, generator)
-    loss = partial_cross_entropy(logits, labels, C)
-    if cfg["tree_loss_weight"]:
-        guide = images.repeat(1, 1, 1, 3) if images.shape[-1] == 1 else images
-        loss = loss + multi_scale_tree_energy(logits, guide, aux, labels == C,
-                                              cfg["tree_loss_weight"], stats=stats)
-    loss = loss + cfg["gatecrf_weight"] * gated_crf(torch.softmax(logits, dim=-1), images,
-                                                    cfg["gatecrf_radius"])
     gaps = []
     for k in range(K):
         if k == cid:
             continue
         other = torch.full((batch,), cid if k == 0 else k, dtype=torch.long, device=images.device)
         with torch.no_grad():
-            heat_k = model(p, images, other, generator)[2]
+            heat_k = forward(p, images, other, generator)["heatmap"]
         gaps.append(((heat - heat_k) ** 2).mean())
-    return loss + cfg["alpha"] * (-torch.stack(gaps).sum() / (K - 1))
+    return -torch.stack(gaps).sum() / (K - 1)
 
 
-def is_head(name: str) -> bool:
-    return name.startswith("decoder.out_conv.")
+def objective(model: ModuleType, config: dict, p, images, labels, cid: int, generator,
+              round_bits: Optional[int] = None, stats: Optional[dict] = None) -> torch.Tensor:
+    """The step's loss under the configuration's procedure."""
+    t, C = config["train"], config["task"]["num_classes"]
+    if t["procedure"] not in ("ours", "pce"):
+        raise ValueError(f"the reference trains 'ours' or 'pce', not {t['procedure']!r}")
+    client = torch.full((images.shape[0],), cid, dtype=torch.long, device=images.device)
+
+    def forward(*args):
+        return model.forward(config, *args, round_bits=round_bits)
+
+    out = forward(p, images, client, generator)
+    logits = out["logits"]
+    loss = partial_cross_entropy(logits, labels, C)
+    if t["procedure"] == "ours":
+        if t["tree_loss_weight"]:
+            guide = images.repeat(1, 1, 1, 3) if images.shape[-1] == 1 else images
+            loss = loss + multi_scale_tree_energy(logits, guide, out["aux"], labels == C,
+                                                  t["tree_loss_weight"], stats=stats)
+        loss = loss + t["gatecrf_weight"] * gated_crf(torch.softmax(logits, dim=-1), images,
+                                                      t["gatecrf_radius"])
+    if contrast_forwards(model, config):
+        loss = loss + t["alpha"] * _contrast(forward, config["task"]["num_clients"], p, images, out["heatmap"], cid, generator)
+    return loss
 
 
-def is_pcs(name: str) -> bool:
-    return any(part.startswith("pcs") for part in name.split("."))
-
-
-def is_dsn_head(name: str) -> bool:
-    return any(part.startswith("dsn_head") for part in name.split("."))
-
-
-def reference_round(params: Dict[str, torch.Tensor], images: torch.Tensor, labels: torch.Tensor,
-                    cid: int, cfg: dict, generator: torch.Generator, *, round_bits: Optional[int] = None,
-                    fault: Optional[str] = None, record_grads=(0,)) -> dict:
-    """One FedICRA round from ``params`` over ``images`` [iters, B, H, W,
-    C_in] and ``labels`` [iters, B, H, W]; ``cfg`` holds the model's
-    ``widths`` and the objective's and the schedule's numbers
-    (``start_iter`` the client's iteration count).
+def reference_round(model: ModuleType, config: dict, params: Dict[str, torch.Tensor], images: torch.Tensor,
+                    labels: torch.Tensor, cid: int, generator: torch.Generator, *, start_iter: int = 0,
+                    round_bits: Optional[int] = None, fault: Optional[str] = None,
+                    record_grads=(0,)) -> dict:
+    """One round of client ``cid`` from ``params`` over ``images`` [iters, B,
+    H, W, C_in] and ``labels`` [iters, B, H, W]: the model module ``model``
+    at the configuration's ``widths``, the objective and the schedule of its
+    ``train`` block; ``start_iter`` is the client's iteration count.
 
     Returns ``losses`` (one float per step), ``grads`` ({step: {name: the
     norm of the gradient that step's optimizer gets}} for the steps in
     ``record_grads``), ``params`` (after the round) and ``depths`` (the
-    first step's four trees' depths, [4, B])."""
-    model = UNetLCMultiHead(cfg["num_clients"], cfg["widths"], round_bits=round_bits)
-    iters, rep = cfg["iters"], cfg["rep_iters"]
-    dsn_idle = cfg["tree_loss_weight"] == 0.0
-    trainable = [n for n in params if not is_pcs(n) and not (dsn_idle and is_dsn_head(n))]
-    phases = [([n for n in trainable if is_head(n)], 0, iters - rep),
-              ([n for n in trainable if not is_head(n)], iters - rep, iters)]
-    p = {n: t.detach().clone() for n, t in params.items()}
+    first step's four trees' depths, [4, B], where the tree term runs)."""
+    t = config["train"]
+    p = {n: t_.detach().clone() for n, t_ in params.items()}
     out = {"losses": [], "grads": {}, "depths": None}
-    for live, lo, hi in phases:
+    for _, live, lo, hi in phases(model, config, list(params)):
         m = {n: torch.zeros_like(p[n]) for n in live}
         v = {n: torch.zeros_like(p[n]) for n in live}
         for j in range(lo, hi):
-            t = j - lo + 1
-            lr = cfg["base_lr"] * (1.0 - (cfg["start_iter"] + j) / cfg["max_iterations"]) ** 0.9
+            step = j - lo + 1
+            lr = t["base_lr"] * (1.0 - (start_iter + j) / t["max_iterations"]) ** 0.9
             for n in live:
                 p[n].requires_grad_(True)
             x, y = images[j], labels[j]
             if fault == "half_batch":
                 x, y = x[: x.shape[0] // 2], y[: y.shape[0] // 2]
             stats = {} if j == 0 else None
-            loss = ours_loss(model, p, x, y, cid, cfg, generator, stats)
+            loss = objective(model, config, p, x, y, cid, generator, round_bits, stats)
             grads = torch.autograd.grad(loss, [p[n] for n in live])
             out["losses"].append(float(loss.detach()))
             if stats is not None:
@@ -149,7 +184,7 @@ def reference_round(params: Dict[str, torch.Tensor], images: torch.Tensor, label
             if j in record_grads:
                 out["grads"][j] = {n: float(g.norm()) for n, g in zip(live, grads)}
             with torch.no_grad():
-                bc1, bc2 = 1.0 - BETAS[0] ** t, 1.0 - BETAS[1] ** t
+                bc1, bc2 = 1.0 - BETAS[0] ** step, 1.0 - BETAS[1] ** step
                 for n, g in zip(live, grads):
                     w = p[n].detach()
                     w.mul_(1.0 - lr * WEIGHT_DECAY)
@@ -158,5 +193,5 @@ def reference_round(params: Dict[str, torch.Tensor], images: torch.Tensor, label
                     denom = (v[n].sqrt() / math.sqrt(bc2)).add_(ADAM_EPS)
                     w.addcdiv_(m[n], denom, value=-lr / bc1)
                     p[n] = w
-    out["params"] = {n: t.detach() for n, t in p.items()}
+    out["params"] = {n: t_.detach() for n, t_ in p.items()}
     return out

@@ -72,32 +72,42 @@ def head_sources(widths: dict) -> List[int]:
     return list(range(1, widths["dsn_heads"] + 1))
 
 
-def param_specs(in_chns: int, num_classes: int, num_clients: int,
-                widths: dict) -> List[Tuple[str, tuple, Optional[int]]]:
-    """(name, shape, fan_in) of every parameter; fan_in None marks a
-    BatchNorm scale or shift."""
-    check_widths(widths)
-    f, hidden = widths["features"], widths["dsn_hidden"]
+def encoder_specs(in_chns: int, f) -> List[tuple]:
+    """The five encoder stages' parameters."""
     specs = _conv_block_specs("encoder.in_conv", in_chns, f[0])
     for i in range(1, 5):
         specs += _conv_block_specs(f"encoder.down{i}.block", f[i - 1], f[i])
-    fd, hid = f[4], max(f[4] // 16, 1)
-    specs += [
-        ("encoder.pcs0.fc1_a.weight", (fd, num_clients, 1, 1), num_clients),
-        ("encoder.pcs0.fc1_b.weight", (fd, fd, 1, 1), fd),
-        ("encoder.pcs0.fc2_a.weight", (hid, 2 * fd, 1, 1), 2 * fd),
-        ("encoder.pcs0.fc2_b.weight", (fd, hid, 1, 1), hid),
-    ]
+    return specs
+
+
+def decoder_specs(num_classes: int, f) -> List[tuple]:
+    """The four up stages' parameters and the out conv's."""
+    specs = []
     for i, (low, skip) in enumerate(((f[4], f[3]), (f[3], f[2]), (f[2], f[1]), (f[1], f[0])), 1):
         specs += [
             (f"decoder.up{i}.conv1x1.weight", (skip, low, 1, 1), low),
             (f"decoder.up{i}.conv1x1.bias", (skip,), low),
         ]
         specs += _conv_block_specs(f"decoder.up{i}.block", 2 * skip, skip)
-    specs += [
+    return specs + [
         ("decoder.out_conv.weight", (num_classes, f[0], 3, 3), f[0] * 9),
         ("decoder.out_conv.bias", (num_classes,), f[0] * 9),
     ]
+
+
+def param_specs(in_chns: int, num_classes: int, num_clients: int,
+                widths: dict) -> List[Tuple[str, tuple, Optional[int]]]:
+    """(name, shape, fan_in) of every parameter; fan_in None marks a
+    BatchNorm scale or shift."""
+    check_widths(widths)
+    f, hidden = widths["features"], widths["dsn_hidden"]
+    fd, hid = f[4], max(f[4] // 16, 1)
+    specs = encoder_specs(in_chns, f) + [
+        ("encoder.pcs0.fc1_a.weight", (fd, num_clients, 1, 1), num_clients),
+        ("encoder.pcs0.fc1_b.weight", (fd, fd, 1, 1), fd),
+        ("encoder.pcs0.fc2_a.weight", (hid, 2 * fd, 1, 1), 2 * fd),
+        ("encoder.pcs0.fc2_b.weight", (fd, hid, 1, 1), hid),
+    ] + decoder_specs(num_classes, f)
     for i in head_sources(widths):
         src = f[3 - i]  # the channels of up stage i's output
         specs += [
@@ -108,6 +118,30 @@ def param_specs(in_chns: int, num_classes: int, num_clients: int,
             (f"decoder.dsn_head{i}.out.weight", (num_classes, hidden, 1, 1), hidden),
         ]
     return specs
+
+
+def _block_convs(prefix: str, c_in: int, c_out: int, pixels: int) -> List[tuple]:
+    return [(f"{prefix}.conv1.conv", c_in, c_out, 3, pixels, 1),
+            (f"{prefix}.conv2.conv", c_out, c_out, 3, pixels, 1)]
+
+
+def encoder_convs(in_chns: int, f, img: int) -> List[tuple]:
+    """The encoder's convolutions of one ``img``^2 image: (name, C_in,
+    C_out, kernel, output pixels, groups)."""
+    out = _block_convs("encoder.in_conv", in_chns, f[0], img * img)
+    for i in range(1, 5):
+        out += _block_convs(f"encoder.down{i}.block", f[i - 1], f[i], (img >> i) ** 2)
+    return out
+
+
+def decoder_convs(num_classes: int, f, img: int) -> List[tuple]:
+    """The up stages' and the out conv's convolutions of one ``img``^2 image."""
+    out = []
+    for i in range(1, 5):
+        low, skip = f[5 - i], f[4 - i]
+        out.append((f"decoder.up{i}.conv1x1", low, skip, 1, (img >> (5 - i)) ** 2, 1))
+        out += _block_convs(f"decoder.up{i}.block", 2 * skip, skip, (img >> (4 - i)) ** 2)
+    return out + [("decoder.out_conv", f[0], num_classes, 3, img * img, 1)]
 
 
 def round_mantissa(t: torch.Tensor, keep: int) -> torch.Tensor:
@@ -140,15 +174,12 @@ class _RoundedConv(torch.autograd.Function):
         return dx, dw, g.sum(dim=(0, 2, 3)) if ctx.has_bias else None, None
 
 
-class UNetLCMultiHead:
-    """The forward pass over a flat parameter dict, NHWC in and out."""
+class UNetOps:
+    """The U-Net family's layers over a flat parameter dict, NCHW."""
 
-    def __init__(self, num_clients: int, widths: dict, round_bits: Optional[int] = None):
+    def __init__(self, round_bits: Optional[int] = None):
         if round_bits is not None and not 1 <= round_bits < 23:
             raise ValueError(f"round_bits {round_bits!r}")
-        check_widths(widths)
-        self.num_clients = num_clients
-        self.widths = widths
         self.round_bits = round_bits
 
     def conv(self, p, name, x, bias=True):
@@ -181,6 +212,37 @@ class UNetLCMultiHead:
         return F.leaky_relu(self.batch_norm(p, f"{name}.conv2.norm", self.conv(p, f"{name}.conv2.conv", x)),
                             LRELU_SLOPE)
 
+    def encoder(self, p, x, rates, generator):
+        """The five stages' outputs: a conv block, then four of 2x2 max-pool
+        and a conv block."""
+        skips = [self.conv_block(p, "encoder.in_conv", x, rates[0], generator)]
+        for i in range(1, 5):
+            skips.append(self.conv_block(p, f"encoder.down{i}.block", F.max_pool2d(skips[-1], 2),
+                                         rates[i], generator))
+        return skips
+
+    def up(self, p, skips, generator):
+        """The four up stages' outputs, from the encoder's."""
+        x, ups = skips[-1], []
+        for i in range(1, 5):
+            skip = skips[4 - i]
+            low = F.interpolate(self.conv(p, f"decoder.up{i}.conv1x1", x), size=skip.shape[-2:],
+                                mode="bilinear", align_corners=True)
+            x = self.conv_block(p, f"decoder.up{i}.block", torch.cat([skip, low], dim=1), 0.0,
+                                generator)
+            ups.append(x)
+        return ups
+
+
+class UNetLCMultiHead(UNetOps):
+    """The forward pass over a flat parameter dict, NHWC in and out."""
+
+    def __init__(self, num_clients: int, widths: dict, round_bits: Optional[int] = None):
+        super().__init__(round_bits)
+        check_widths(widths)
+        self.num_clients = num_clients
+        self.widths = widths
+
     def pcs(self, p, x, client):
         onehot = F.one_hot(client, self.num_clients).to(x.dtype)[:, :, None, None]
         e = self.conv(p, "encoder.pcs0.fc1_b", F.relu(self.conv(p, "encoder.pcs0.fc1_a", onehot, False)),
@@ -199,21 +261,10 @@ class UNetLCMultiHead:
         """images [B, H, W, C_in]; client [B] long. Returns (logits NHWC,
         [aux1, ...] NHWC, one a head, heatmap [B, 1, 1, features[4]])."""
         rates = self.widths["dropout"]
-        x = images.permute(0, 3, 1, 2)
-        skips = [self.conv_block(p, "encoder.in_conv", x, rates[0], generator)]
-        for i in range(1, 5):
-            skips.append(self.conv_block(p, f"encoder.down{i}.block", F.max_pool2d(skips[-1], 2),
-                                         rates[i], generator))
+        skips = self.encoder(p, images.permute(0, 3, 1, 2), rates, generator)
         skips[-1], heat = self.pcs(p, skips[-1], client)
-        x, ups = skips[-1], []
-        for i in range(1, 5):
-            skip = skips[4 - i]
-            low = F.interpolate(self.conv(p, f"decoder.up{i}.conv1x1", x), size=skip.shape[-2:],
-                                mode="bilinear", align_corners=True)
-            x = self.conv_block(p, f"decoder.up{i}.block", torch.cat([skip, low], dim=1), 0.0,
-                                generator)
-            ups.append(x)
-        logits = self.conv(p, "decoder.out_conv", x)
+        ups = self.up(p, skips, generator)
+        logits = self.conv(p, "decoder.out_conv", ups[-1])
         aux = []
         for i in head_sources(self.widths):
             h = F.relu(self.batch_norm(p, f"decoder.dsn_head{i}.bn",

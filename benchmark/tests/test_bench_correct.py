@@ -1,5 +1,8 @@
 """``correct`` on the CPU at 32^2: true for the port as it is, false for
-the control (TF32 for float32) and for each fault the local rounds can have.
+the control (TF32 for float32) and for each fault the local rounds can have;
+in every cell and in a cell of another model family, strategy and objective
+built here (``bench_helpers.TEST_CELLS``), which the harness takes from its
+reference module alone.
 
 The port runs its plain routes here (the tree chain's twins, the gated
 CRF's twin); the card runs its kernels, which the check on the card holds
@@ -13,10 +16,9 @@ import time
 import pytest
 import torch
 
-from bench_helpers import CELLS, small_cell
-from benchmark.drivers import local_rounds
+from bench_helpers import CELLS, TEST_CELLS, small_cell
 from benchmark.harness import check
-from benchmark.run import run_cell
+from benchmark.run import driver, run_cell
 
 SEED = 2**31 + 977  # beyond 32 signed bits, as the check's seeds are
 
@@ -33,7 +35,10 @@ def run_small(name, trace=False):
     return run_cell(small_cell(name), SEED, 0.1, trace, torch.device("cpu"), time.perf_counter())
 
 
-@pytest.mark.parametrize("name", CELLS)
+ALL_CELLS = CELLS + list(TEST_CELLS)
+
+
+@pytest.mark.parametrize("name", ALL_CELLS)
 def test_port_is_correct_at_a_small_size(name):
     out = run_small(name)
     assert out["correct"], out["checks"]
@@ -49,14 +54,15 @@ def test_traced_run_reports_the_host_metrics():
     assert out["busy_s"] == 0.0 and "idle_share.train" not in out["metrics"]  # no device here
 
 
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", ALL_CELLS)
 def test_control_is_not_correct(name):
     cell = small_cell(name)
     cfg, traffic = cell["config"], cell["traffic"]
-    ref = local_rounds.reference_readings(cfg, traffic, SEED, "cpu")
-    control = local_rounds.reference_readings(cfg, traffic, SEED, "cpu",
-                                              round_bits=cell["precision"]["control_mantissa_bits"])
-    readings = local_rounds.compare(control, ref)
+    drv = driver(traffic["kind"])
+    ref = drv.reference_readings(cfg, traffic, SEED, "cpu")
+    control = drv.reference_readings(cfg, traffic, SEED, "cpu",
+                                     round_bits=cell["precision"]["control_mantissa_bits"])
+    readings = drv.compare(control, ref)
     assert not check.judge(readings, cell["limits"]), readings
 
 
@@ -85,7 +91,7 @@ def _half_batch(real):
     return get_objective
 
 
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", ALL_CELLS)
 @pytest.mark.parametrize("fault", ["state_unchanged", "half_batch"])
 def test_fault_in_the_timed_path_is_not_correct(name, fault, monkeypatch):
     from fedicra_torch.engine import trainer

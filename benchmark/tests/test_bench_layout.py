@@ -28,6 +28,11 @@ def test_cell_files_load(name):
     assert {"allow_tf32", "autocast", "peak_flops", "control_mantissa_bits"} <= set(cell["precision"])
     drv = driver(cell["traffic"]["kind"])
     assert callable(drv.run) and callable(drv.compare)
+    from benchmark.reference import models
+
+    family = models.load(cell["config"]["model"])
+    for name in ("param_specs", "port_kwargs", "forward", "convs", "is_head"):
+        assert callable(getattr(family, name)), name
     assert "setup_s" in cell["end_to_end"] and len(cell["end_to_end"]) >= 2 and cell["per_layer"]
 
 
@@ -68,6 +73,21 @@ def test_reference_imports_nothing_of_the_port_or_jax(path):
     assert not tops & {"fedicra_torch", *FORBIDDEN}, tops
 
 
+@pytest.mark.parametrize("path", ["drivers/local_rounds.py", "reference/fedicra_round.py", "harness/work.py"])
+def test_harness_imports_no_model_family_by_name(path):
+    """A model family is found by the configuration's ``model``: the round,
+    its driver and the work count import none of them."""
+    tree = ast.parse((ROOT / "benchmark" / path).read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            names |= {f"{node.module or ''}.{a.name}" for a in node.names}
+        elif isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+    families = {p.stem for p in (ROOT / "benchmark" / "reference" / "models").glob("*.py")} | {"unet_lc"}
+    assert not any(part in families for n in names for part in n.split(".")), names
+
+
 def test_run_modules_load_no_jax():
     """In a fresh process: import the run's modules, every driver, the
     reference and the port's modules the window drives, then compare whole
@@ -77,6 +97,8 @@ def test_run_modules_load_no_jax():
         "import benchmark.run, benchmark.reference.fedicra_round\n"
         "[benchmark.run.driver(p.stem) for p in __import__('pathlib').Path(%r).glob('*.py')\n"
         " if p.stem != '__init__']\n"
+        "from benchmark.reference import models\n"
+        "[models.load(p.stem) for p in models.MODELS.glob('*.py') if p.stem != '__init__']\n"
         "import fedicra_torch.engine.trainer, fedicra_torch.models\n"
         "from benchmark.harness import env, readers\n"
         "[readers.load(m['name']) for m in __import__('json').load(open(%r))['per_layer']]\n"

@@ -2,42 +2,149 @@
 
 from __future__ import annotations
 
+import json
+
 import pytest
 import torch
+import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
-from bench_helpers import SPEC, small_cell
+from bench_helpers import CELLS, ROOT, SPEC, TEST_CELLS, small_cell
 from benchmark.harness import inputs, trace, work
-from benchmark.reference.unet_lc import UNetLCMultiHead, param_specs
+from benchmark.reference import models
+from benchmark.reference.fedicra_round import contrast_forwards, phases
 
 CONFIG_CELLS = {w["config"]: w["name"] for w in SPEC["workloads"]}
 # the published widths, and a narrower model with two heads
 NARROW = {"features": [8, 16, 32, 48, 64], "pcs_stages": 1, "dsn_heads": 2, "dsn_hidden": 40,
           "dropout": [0.0] * 5, "dsn_dropout": 0.0}
+MODULES = sorted(p.stem for p in (ROOT / "benchmark" / "reference" / "models").glob("*.py")
+                 if p.stem != "__init__")
+# a cell of each model module: the benchmark's, then those the tests build
+MODULE_CELLS = {}
+for _name in CELLS + list(TEST_CELLS):
+    MODULE_CELLS.setdefault(small_cell(_name)["config"]["model"], _name)
+PINNED = json.loads((ROOT / "benchmark" / "tests" / "pinned_readings.json").read_text())
 
 
-def widths_of(config):
-    return NARROW if config == "narrow" else small_cell(CONFIG_CELLS[config])["config"]["widths"]
+def lc_config(in_chns, classes, clients, img, config):
+    """An ``unet_lc_multihead`` configuration at these sizes and widths."""
+    cfg = small_cell(CELLS[0])["config"]
+    cfg["widths"] = NARROW if config == "narrow" else small_cell(CONFIG_CELLS[config])["config"]["widths"]
+    cfg["task"].update(in_chns=in_chns, num_classes=classes, num_clients=clients, img_size=img)
+    return cfg
+
+
+def counted_forward(model, config, batch=2):
+    params = inputs.draw_weights(model.param_specs(config), 1, "cpu")
+    task = config["task"]
+    images = torch.rand(batch, task["img_size"], task["img_size"], task["in_chns"])
+    with FlopCounterMode(display=False) as counter:
+        model.forward(config, params, images, torch.zeros(batch, dtype=torch.long), None)
+    return counter.get_total_flops()
 
 
 @pytest.mark.parametrize("in_chns,classes,clients,img,config",
                          [(3, 3, 5, 32, c) for c in CONFIG_CELLS]
                          + [(1, 2, 5, 32, "narrow"), (3, 2, 4, 48, "narrow")])
 def test_forward_flops_match_flop_counter(in_chns, classes, clients, img, config):
-    widths = widths_of(config)
-    params = inputs.draw_weights(param_specs(in_chns, classes, clients, widths), 1, "cpu")
-    images = torch.rand(2, img, img, in_chns)
+    cfg = lc_config(in_chns, classes, clients, img, config)
+    model = models.load("unet_lc_multihead")
+    assert counted_forward(model, cfg) == 2 * work.forward_flops(model, cfg)
+
+
+def test_every_model_module_has_a_cell():
+    assert MODULES and set(MODULES) <= set(MODULE_CELLS), (MODULES, MODULE_CELLS)
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_model_module_convs_match_flop_counter(module):
+    """Each module's ``convs`` against FlopCounterMode on its own forward."""
+    config = small_cell(MODULE_CELLS[module])["config"]
+    model = models.load(module)
+    assert counted_forward(model, config) == 2 * work.forward_flops(model, config)
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_step_flops_match_flop_counter(module):
+    """Each phase's step: the own forward, its backward to the phase's live
+    leaves and the contrast forwards, as FlopCounterMode counts them."""
+    config = small_cell(MODULE_CELLS[module])["config"]
+    model = models.load(module)
+    task, batch = config["task"], config["train"]["batch_size"]
+    counts = work.step_flops(model, config)
+    images = torch.rand(batch, task["img_size"], task["img_size"], task["in_chns"])
+    client = torch.zeros(batch, dtype=torch.long)
+    specs = model.param_specs(config)
+    for label, live, _, _ in phases(model, config, [n for n, _, _ in specs]):
+        params = inputs.draw_weights(specs, 1, "cpu")
+        for n in live:
+            params[n].requires_grad_(True)
+        with FlopCounterMode(display=False) as counter:
+            out = model.forward(config, params, images, client, None)
+            loss = out["logits"].sum() + sum(a.sum() for a in out.get("aux", []))
+            torch.autograd.grad(loss, [params[n] for n in live], allow_unused=True)
+            with torch.no_grad():
+                for _ in range(contrast_forwards(model, config)):
+                    model.forward(config, params, images, client, None)
+        assert counter.get_total_flops() == counts[label], label
+
+
+@pytest.mark.parametrize("groups", [1, 2, 12])
+def test_grouped_conv_flops_match_flop_counter(groups):
+    x, w = torch.rand(2, 12, 10, 10), torch.rand(24, 12 // groups, 5, 5)
     with FlopCounterMode(display=False) as counter:
-        UNetLCMultiHead(clients, widths)(params, images, torch.zeros(2, dtype=torch.long), None)
-    assert counter.get_total_flops() == 2 * work.forward_flops(in_chns, classes, clients, img, widths)
+        F.conv2d(x, w, padding=2, groups=groups)
+    assert counter.get_total_flops() == 2 * work.conv_flops(12, 24, 5, 100, groups)
 
 
 def test_step_flops_at_odoc():
-    widths = small_cell("odoc.local_rounds")["config"]["widths"]
-    fwd = work.forward_flops(3, 3, 5, 384, widths)
+    config = small_cell("odoc.local_rounds", img=384, batch=12)["config"]
+    model = models.load(config["model"])
+    fwd = work.forward_flops(model, config)
     assert round(fwd / 1e9, 1) == 52.0
-    steps = work.step_flops(3, 3, 5, 384, 12, widths)
+    steps = work.step_flops(model, config)
     assert steps["head"] > 5 * 12 * fwd and steps["body"] < 7 * 12 * fwd
+
+
+def _hexes(readings):
+    return {"losses": [x.hex() for x in readings["losses"]],
+            "grads": {str(j): {n: v.hex() for n, v in g.items()} for j, g in readings["grads"].items()},
+            "change": {n: v.hex() for n, v in readings["change"].items()}}
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_cell_reads_as_pinned(name):
+    """The reference's readings at 32^2, bit for bit, and the step FLOPs at
+    the cell's own size, to the FLOP, as ``pinned_readings.json`` holds them."""
+    from benchmark.run import driver, load_cell
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        cell = small_cell(name)
+        ref = driver(cell["traffic"]["kind"]).reference_readings(cell["config"], cell["traffic"],
+                                                                 2**31 + 977, "cpu")
+    finally:
+        torch.set_num_threads(before)
+    hexes, pinned = _hexes(ref), PINNED[name]
+    moved = [f"loss {j}: {float.fromhex(a)!r} != {float.fromhex(b)!r}"
+             for j, (a, b) in enumerate(zip(hexes["losses"], pinned["losses"])) if a != b]
+    for key, got, want in [*((f"grad {j}", g, pinned["grads"].get(j, {}))
+                             for j, g in hexes["grads"].items()),
+                           ("change", hexes["change"], pinned["change"])]:
+        moved += [f"{key} {leaf}: {float.fromhex(got[leaf])!r} != {float.fromhex(want[leaf])!r}"
+                  for leaf in sorted(got.keys() & want.keys()) if got[leaf] != want[leaf]]
+        moved += [f"{key} {leaf}: only on one side" for leaf in sorted(got.keys() ^ want.keys())]
+    assert len(hexes["losses"]) == len(pinned["losses"]) and hexes["grads"].keys() == pinned["grads"].keys()
+    assert not moved, "readings moved from the pinned ones:\n" + "\n".join(moved)
+    config = load_cell(name)["config"]
+    assert work.step_flops(models.load(config["model"]), config) == PINNED[name]["step_flops"]
+
+
+def test_a_missing_model_module_is_refused_with_its_path():
+    with pytest.raises(FileNotFoundError, match=r"reference/models/no_such_model\.py"):
+        models.load("no_such_model")
 
 
 def test_idle_share_and_breakdown_of_a_synthetic_trace():
