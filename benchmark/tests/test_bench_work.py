@@ -1,7 +1,18 @@
-"""The work counts and the trace arithmetic, on known inputs."""
+"""The work counts and the trace arithmetic, on known inputs.
+
+Each cell's pins, ``pins/<cell>.json``, written by
+``python3 benchmark/tools/pins.py --workload <cell>``: the reference's
+readings of client 0's first round (seed 2**31 + 977, 32^2, batch 2, 2 CPU
+threads), each float as its hex: the losses, each leaf's gradient norm at
+each phase's first step, and each leaf's change; and ``work.step_flops`` at
+the cell's own size. A change to the reference or the work count that moves
+them rewrites the cell's file and says why; so does a PyTorch or BLAS update
+that moves a bit.
+"""
 
 from __future__ import annotations
 
+import functools
 import json
 
 import pytest
@@ -13,8 +24,11 @@ from bench_helpers import CELLS, ROOT, SPEC, TEST_CELLS, small_cell
 from benchmark.harness import inputs, trace, work
 from benchmark.reference import models
 from benchmark.reference.fedicra_round import contrast_forwards, phases
+from benchmark.tools import pins
 
 CONFIG_CELLS = {w["config"]: w["name"] for w in SPEC["workloads"]}
+# the configurations of the family whose ``convs`` the LC FLOP test holds
+LC_CONFIGS = [c for c, w in CONFIG_CELLS.items() if small_cell(w)["config"]["model"] == "unet_lc_multihead"]
 # the published widths, and a narrower model with two heads
 NARROW = {"features": [8, 16, 32, 48, 64], "pcs_stages": 1, "dsn_heads": 2, "dsn_hidden": 40,
           "dropout": [0.0] * 5, "dsn_dropout": 0.0}
@@ -24,7 +38,6 @@ MODULES = sorted(p.stem for p in (ROOT / "benchmark" / "reference" / "models").g
 MODULE_CELLS = {}
 for _name in CELLS + list(TEST_CELLS):
     MODULE_CELLS.setdefault(small_cell(_name)["config"]["model"], _name)
-PINNED = json.loads((ROOT / "benchmark" / "tests" / "pinned_readings.json").read_text())
 
 
 def lc_config(in_chns, classes, clients, img, config):
@@ -45,7 +58,7 @@ def counted_forward(model, config, batch=2):
 
 
 @pytest.mark.parametrize("in_chns,classes,clients,img,config",
-                         [(3, 3, 5, 32, c) for c in CONFIG_CELLS]
+                         [(3, 3, 5, 32, c) for c in LC_CONFIGS]
                          + [(1, 2, 5, 32, "narrow"), (3, 2, 4, 48, "narrow")])
 def test_forward_flops_match_flop_counter(in_chns, classes, clients, img, config):
     cfg = lc_config(in_chns, classes, clients, img, config)
@@ -107,27 +120,27 @@ def test_step_flops_at_odoc():
     assert steps["head"] > 5 * 12 * fwd and steps["body"] < 7 * 12 * fwd
 
 
-def _hexes(readings):
-    return {"losses": [x.hex() for x in readings["losses"]],
-            "grads": {str(j): {n: v.hex() for n, v in g.items()} for j, g in readings["grads"].items()},
-            "change": {n: v.hex() for n, v in readings["change"].items()}}
+def pin_file(name):
+    """The cell's pin file, or a failure naming where it belongs and how it
+    is written."""
+    path = pins.path(name)
+    if not path.is_file():
+        pytest.fail(f"no pins for cell {name!r} at {path}; write them with "
+                    f"python3 benchmark/tools/pins.py --workload {name}", pytrace=False)
+    return json.loads(path.read_text())
+
+
+@functools.lru_cache(maxsize=None)
+def readings(name):
+    return pins.readings(name)
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_reads_as_pinned(name):
     """The reference's readings at 32^2, bit for bit, and the step FLOPs at
-    the cell's own size, to the FLOP, as ``pinned_readings.json`` holds them."""
-    from benchmark.run import driver, load_cell
-
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        cell = small_cell(name)
-        ref = driver(cell["traffic"]["kind"]).reference_readings(cell["config"], cell["traffic"],
-                                                                 2**31 + 977, "cpu")
-    finally:
-        torch.set_num_threads(before)
-    hexes, pinned = _hexes(ref), PINNED[name]
+    the cell's own size, to the FLOP, as ``pins/<cell>.json`` holds them."""
+    pinned = pin_file(name)
+    hexes = readings(name)
     moved = [f"loss {j}: {float.fromhex(a)!r} != {float.fromhex(b)!r}"
              for j, (a, b) in enumerate(zip(hexes["losses"], pinned["losses"])) if a != b]
     for key, got, want in [*((f"grad {j}", g, pinned["grads"].get(j, {}))
@@ -138,8 +151,21 @@ def test_cell_reads_as_pinned(name):
         moved += [f"{key} {leaf}: only on one side" for leaf in sorted(got.keys() ^ want.keys())]
     assert len(hexes["losses"]) == len(pinned["losses"]) and hexes["grads"].keys() == pinned["grads"].keys()
     assert not moved, "readings moved from the pinned ones:\n" + "\n".join(moved)
-    config = load_cell(name)["config"]
-    assert work.step_flops(models.load(config["model"]), config) == PINNED[name]["step_flops"]
+    assert hexes["step_flops"] == pinned["step_flops"]
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_pins_tool_writes_each_pin_file(name):
+    """``tools/pins.py`` writes the cell's file as it stands, byte for byte."""
+    assert pins.render(readings(name)) == pins.path(name).read_text()
+
+
+def test_a_cell_without_pins_fails_naming_the_path(tmp_path, monkeypatch):
+    monkeypatch.setattr(pins, "PINS", tmp_path)
+    with pytest.raises(pytest.fail.Exception) as failed:
+        test_cell_reads_as_pinned(CELLS[0])
+    assert str(tmp_path / f"{CELLS[0]}.json") in str(failed.value)
+    assert f"python3 benchmark/tools/pins.py --workload {CELLS[0]}" in str(failed.value)
 
 
 def test_a_missing_model_module_is_refused_with_its_path():
