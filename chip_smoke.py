@@ -45,7 +45,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    per call and back to back beside its bound, the twin and the library
    composition (cuDNN's conv, then ``torch.batch_norm_stats``);
 5. the "ours" objective (tree term on) and ``treeenergy_add`` on the card
-   (the kernel route) against the CPU (the plain route) at a small input;
+   (the kernel route) against the CPU (the plain route) at a small input,
+   the CPU's trees built from the card's MST weights, and where the trees
+   of each device's own weights differ;
 6. the tree-off round: one FedICRA local round of "ours" at
    tree_loss_weight=0, full-width unet_lc_multihead for ODOC (384^2, batch
    12, 5 clients, real dropout rates), 1 head step then 1 body step;
@@ -1286,37 +1288,85 @@ def phase_dsn_stats(dev) -> list:
     return rows
 
 
+def tree_differences(w_card: torch.Tensor, w_cpu: torch.Tensor, h: int, w: int) -> dict:
+    """How the MSTs of one call's weights [N, E] on the card and on the CPU
+    differ: the images and edges that differ, and the excess of the other
+    device's tree over each device's own under that device's weights
+    (float64, exact for these fp32 sums; 0 where the other tree is a
+    minimum tree too, so that the two differ only by swaps of edges whose
+    weights tie exactly there), with the largest gap between the weights."""
+    from fedicra_torch.ops.mst import boruvka_mst, grid_edges
+
+    eu, ev = (torch.as_tensor(a).long() for a in grid_edges(h, w))
+    w_card, w_cpu = w_card.cpu(), w_cpu.cpu()
+    sel_card, sel_cpu = (boruvka_mst(eu, ev, t, h * w) for t in (w_card, w_cpu))
+    differ = (sel_card != sel_cpu).any(dim=1)
+
+    def excess(weights, own, other):
+        weights = weights.double()
+        return ((weights * other).sum(1) - (weights * own).sum(1)).max().item()
+
+    return {"images": int(differ.sum()), "edges": int((sel_card & ~sel_cpu).sum()),
+            "excess_card": excess(w_card, sel_card, sel_cpu),
+            "excess_cpu": excess(w_cpu, sel_cpu, sel_card),
+            "max_weight_gap": (w_card - w_cpu).abs().max().item()}
+
+
 def phase_small_agreement(dev):
     """The objective (tree term on), then ``treeenergy_add`` on the same
     weights, on the card against the CPU (plain twins). The launch counts
     show the route: the tree kernels and no plain filter on the card, the
-    plain filter and no kernel on the CPU."""
+    plain filter and no kernel on the CPU.
+
+    The high trees' MSTs come from aux logits upsampled 4x, whose weights
+    hold exact ties that each device's rounding breaks its own way, and a
+    tie broken otherwise moves the gradient through the tree. So the CPU
+    builds its trees from the card's MST weights, call for call, and the
+    two devices are held to the same trees; the trees of the CPU's own
+    weights are compared with the card's apart (``tree_differences``)."""
     from fedicra_torch.engine.config import TrainConfig
     from fedicra_torch.engine.objective import ours_loss, treeenergy_add_loss
     from fedicra_torch.engine.trainer import init_client_state
+    from fedicra_torch.losses import tree_energy
     from fedicra_torch.models import net_factory
 
     cfg = TrainConfig.for_task("odoc", img_size=32, batch_size=2, tree_loss_weight=0.1)
     rng = np.random.default_rng(2)
     image = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
     label = np.where(rng.uniform(size=(2, 32, 32)) < 0.7, 3, rng.integers(0, 3, (2, 32, 32)))
+    own_weights = tree_energy.mst_edge_weights
+    card_weights, cpu_weights = [], []
+
+    def card_records(guides, eu, ev):
+        card_weights.append(own_weights(guides, eu, ev))
+        return card_weights[-1]
+
+    def cpu_takes_the_cards(guides, eu, ev):
+        cpu_weights.append(own_weights(guides, eu, ev))
+        return card_weights[len(cpu_weights) - 1].to(cpu_weights[-1].device)
+
     results = {}
-    for device in ("cpu", dev):
+    for device in (dev, "cpu"):
+        on_cpu = torch.device(device).type == "cpu"
         model = net_factory("unet_lc_multihead", in_chns=3, class_num=3,
                             dropout=(0.0,) * 5, dsn_dropout=0.0)
         init_client_state(model, cfg, seed=5, device=device)
         model.train()
         batch = {"image": torch.as_tensor(image, device=device),
                  "label": torch.as_tensor(label, device=device)}
-        _reset_kernel_counts()
-        loss, metrics = ours_loss(model, batch, 1, cfg)
-        loss.backward()
-        counts = {"ours": _kernel_counts()}
-        _reset_kernel_counts()
-        _, add = treeenergy_add_loss(model, batch, 1, cfg.replace(procedure="treeenergy_add"))
-        counts["treeenergy_add"] = _kernel_counts()
+        tree_energy.mst_edge_weights = cpu_takes_the_cards if on_cpu else card_records
+        try:
+            _reset_kernel_counts()
+            loss, metrics = ours_loss(model, batch, 1, cfg)
+            loss.backward()
+            counts = {"ours": _kernel_counts()}
+            _reset_kernel_counts()
+            _, add = treeenergy_add_loss(model, batch, 1, cfg.replace(procedure="treeenergy_add"))
+            counts["treeenergy_add"] = _kernel_counts()
+        finally:
+            tree_energy.mst_edge_weights = own_weights
         # on the CPU the four plain filters, forward and backward (treeenergy_add: forward)
-        if torch.device(device).type == "cpu":
+        if on_cpu:
             want = {"ours": {**ZERO_COUNTS, "tree_filter_fwd": 4, "tree_filter_bwd": 4},
                     "treeenergy_add": {**ZERO_COUNTS, "tree_filter_fwd": 4}}
         else:
@@ -1330,6 +1380,11 @@ def phase_small_agreement(dev):
             model.decoder.out_conv.weight.grad.cpu(),
             {f"treeenergy_add {k}": v.item() for k, v in add.items()},
         )
+    if len(cpu_weights) != len(card_weights):
+        raise AssertionError(f"{len(card_weights)} MST calls on the card, {len(cpu_weights)} on the CPU")
+    for call, (a, b) in zip(("ours", "treeenergy_add"), zip(card_weights, cpu_weights)):
+        log(f"[small] {call}: the trees of each device's own MST weights differ in "
+            f"{tree_differences(a, b, 32, 32)}")
     (m_cpu, g_cpu, a_cpu), (m_gpu, g_gpu, a_gpu) = results["cpu"], results[str(dev)]
     m_cpu, m_gpu = {**m_cpu, **a_cpu}, {**m_gpu, **a_gpu}
     if not m_gpu["loss_tree"] > 0.0:
@@ -1337,8 +1392,6 @@ def phase_small_agreement(dev):
     for k in m_cpu:
         if not math.isclose(m_cpu[k], m_gpu[k], rel_tol=1e-4, abs_tol=1e-6):
             raise AssertionError(f"{k}: card {m_gpu[k]!r} vs cpu {m_cpu[k]!r}")
-    # atol 1e-5: the high trees' MSTs come from aux logits upsampled 4x, whose
-    # weights hold exact ties that each device's rounding breaks its own way
     torch.testing.assert_close(g_gpu, g_cpu, rtol=1e-3, atol=1e-5)
     log(f"[small] ours_loss card {m_gpu['total_loss']:.7g} cpu {m_cpu['total_loss']:.7g}, "
         f"loss_tree card {m_gpu['loss_tree']:.7g} cpu {m_cpu['loss_tree']:.7g}; "

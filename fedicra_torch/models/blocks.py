@@ -19,7 +19,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
-from typing import Iterator, Optional, Sequence
+from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +51,10 @@ def get_compute_dtype() -> Optional[torch.dtype]:
     return _COMPUTE_DTYPE.get()
 
 
+# a tensor, or a tuple of its channel blocks in order (``Conv.forward``)
+Parts = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+
 class Conv(nn.Conv2d):
     """``nn.Conv2d`` that computes in the context's compute dtype.
 
@@ -62,8 +66,16 @@ class Conv(nn.Conv2d):
     where torch's bf16 kernel rounds elsewhere, it runs in fp32 and rounds.
     """
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: Parts) -> torch.Tensor:
+        """``x`` is a tensor, or a tuple of the channel blocks of one, in
+        order: the convolution of ``torch.cat(x, dim=1)``. The blocks are
+        convolved apart in fp32 on the card (``_forward_parts``), and
+        concatenated otherwise."""
         dtype = get_compute_dtype()
+        if isinstance(x, tuple):
+            if dtype is None and x[0].is_cuda:
+                return self._forward_parts(x)
+            x = torch.cat(x, dim=1)
         if dtype is None:
             return super().forward(x)
         x, w = x.to(dtype), self.weight.to(dtype)
@@ -74,6 +86,23 @@ class Conv(nn.Conv2d):
         if self.bias is not None:
             out = out + self.bias.to(dtype)[:, None, None]
         return out
+
+    def _forward_parts(self, parts: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        """The fp32 convolution of the parts' concatenation without forming
+        it: each part convolved with its slice of the weight, summed, then
+        the bias. cuDNN's heuristics send some wide convolutions to its
+        FFT-tiling route at ~100x an implicit GEMM's time (ODOC's first up
+        block: 256 channels at 48^2, in either memory format); its parts,
+        half as wide, take implicit GEMM. On the CPU and under a compute
+        dtype ``forward`` concatenates instead, so that the one convolution
+        rounds once, as JAX's does, which the parity tests against the JAX
+        package hold."""
+        out, start = None, 0
+        for part in parts:
+            y = self._conv_forward(part, self.weight[:, start:start + part.shape[1]], None)
+            out = y if out is None else out + y
+            start += part.shape[1]
+        return out if self.bias is None else out + self.bias[:, None, None]
 
 
 def dropout_keep(
@@ -186,7 +215,7 @@ class ConvBNAct(nn.Module):
         self.conv = conv(in_ch, out_ch)
         self.norm = BatchNorm(out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: Parts) -> torch.Tensor:
         return F.leaky_relu(self.norm(self.conv(x)), LRELU_SLOPE)
 
 
@@ -199,7 +228,7 @@ class ConvBlock(nn.Module):
         self.conv2 = ConvBNAct(out_ch, out_ch)
         self.dropout_p = dropout_p
 
-    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+    def forward(self, x: Parts, generator=None) -> torch.Tensor:
         x = self.conv1(x)
         if self.training:
             x = dropout(x, self.dropout_p, generator)
@@ -218,7 +247,8 @@ class DownBlock(nn.Module):
 
 
 class UpBlock(nn.Module):
-    """1x1 conv, align-corners bilinear upsampling to the skip, concat, ConvBlock.
+    """1x1 conv, align-corners bilinear upsampling to the skip, then ConvBlock
+    on [skip, upsampled], passed as its two parts (``Conv.forward``).
 
     Only the bilinear variant is ported: it is the live one (PARITY #11).
     """
@@ -230,7 +260,7 @@ class UpBlock(nn.Module):
 
     def forward(self, x_low, x_skip, generator=None) -> torch.Tensor:
         x_low = resize_bilinear_align_corners(self.conv1x1(x_low), *x_skip.shape[-2:])
-        return self.block(torch.cat([x_skip, x_low], dim=1), generator)
+        return self.block((x_skip, x_low), generator)
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -287,7 +317,10 @@ class DSNHead(nn.Module):
         self.drop_rate = drop_rate
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        h = F.relu(self.bn(self.conv(x)))
+        # NCHW, whatever the model's format: cuDNN has no channels-last fp32
+        # kernel for the 512-channel convolutions, and would transpose
+        # through workspaces the size of the 512-channel map
+        h = F.relu(self.bn(self.conv(x.contiguous())))
         if self.training:
             h = dropout(h, self.drop_rate, generator, channels=True)
         return self.out(h)
@@ -297,8 +330,9 @@ class DSNHead(nn.Module):
         nothing else; the caller holds the module in train mode with grad
         off (``_UNetLC.forward`` checks it)."""
         bn = self.bn
-        # a 1-channel model runs channels-last (its NCHW input is both), and
-        # the moments read NCHW planes: one copy there, none otherwise
+        # the moments read NCHW planes, and the model runs channels-last on
+        # the card (models/unet.py `_nchw`; on the CPU a 1-channel model
+        # too): one copy of the head's input there, none otherwise
         dsn_stats_cuda.conv3x3_batch_moments(
             x.contiguous(), self.conv.weight, self.conv.bias,
             running=(bn.running_mean, bn.running_var), momentum=bn.momentum)

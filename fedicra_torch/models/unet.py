@@ -2,8 +2,9 @@
 
 Counterpart of ``fedicra_tpu/models/unet.py``: the plain, multi-head,
 deep-supervision, CCT and LC (PCS) variants. Every model takes and returns
-NHWC tensors, as the JAX models do; inside it computes in NCHW, and its
-outputs are NHWC views of the NCHW results. Each returns JAX's output dict
+NHWC tensors, as the JAX models do; inside it computes on NCHW-shaped
+tensors (channels-last on the card: ``_nchw``), and its outputs are NHWC
+views of the NCHW results. Each returns JAX's output dict
 (``logits``, and as the model has them ``aux``, ``de``, ``features``,
 ``heatmaps``), and each takes ``emb_idx`` and ``generator``: the non-LC
 models ignore ``emb_idx``; ``generator`` feeds dropout and the CCT
@@ -32,7 +33,20 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2).contiguous()
+    """The NHWC input as NCHW.
+
+    On the card, a view with no copy: its strides are channels-last and
+    every layer after it keeps them. Train-mode BatchNorm runs its
+    channels-last kernels, which spread a wide, shallow map over the whole
+    card, and cuDNN's heuristics take implicit GEMM where they send some
+    NCHW convolutions (ODOC's 48^2 stage) to FFT tiling. On the CPU, a
+    contiguous copy: oneDNN's channels-last kernels round elsewhere, and the
+    parity tests against the JAX package (bf16 steps, the tree-on
+    objective) leave their tolerances. A 1-channel input is both formats,
+    so it is the same tensor either way.
+    """
+    x = x.permute(0, 3, 1, 2)
+    return x if x.is_cuda else x.contiguous()
 
 
 def _outputs(out: dict, feature, heatmaps=None) -> dict:

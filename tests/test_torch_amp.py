@@ -157,6 +157,8 @@ def test_cpu_convolutions_round_once(jax_steps, monkeypatch):
     default = _vec_of_step(_port_step(amp=True))
 
     def native_bf16(self, x):
+        if isinstance(x, tuple):  # an up block's parts, concatenated as ``Conv`` does
+            x = torch.cat(x, dim=1)
         dtype = blocks.get_compute_dtype()
         if dtype is None:
             return torch.nn.Conv2d.forward(self, x)

@@ -1,6 +1,8 @@
 """The contrast forwards' statistics-only DSN heads (``heatmaps_only``):
 the same heatmaps, dropout draws and running statistics as full forwards,
-and the batch-moment arithmetic they rest on (``ops/dsn_stats_cuda.py``).
+and the batch-moment arithmetic they rest on (``ops/dsn_stats_cuda.py``);
+and the U-Net family's activations, channels-last on the card: the same
+results in either memory format.
 
 This file imports no JAX, so the tests marked ``cuda`` run on a machine with
 a card and no JAX stack::
@@ -20,7 +22,7 @@ import torch.distributed as dist
 from chip_smoke import DSN_HEAD_SHAPES, direct_float64_moments, dsn_head_inputs
 from fedicra_torch.engine.config import TrainConfig
 from fedicra_torch.engine.objective import _contrast_loss
-from fedicra_torch.models import net_factory
+from fedicra_torch.models import blocks, net_factory, unet
 from fedicra_torch.models.blocks import compute_dtype, dropout, dropout_keep, init_torch_default
 from fedicra_torch.models.unet import _UNetLC
 from fedicra_torch.ops import dsn_stats_cuda as dsn
@@ -47,7 +49,8 @@ def one_thread():
 def cuda_device():
     """The card, for tests marked ``cuda``; skips where there is none."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode, and the model runs "
+                    "channels-last only there")
     return torch.device("cuda")
 
 
@@ -319,6 +322,124 @@ def test_wrapper_refuses_what_the_kernels_do_not_take():
     assert dsn.launches == {"dsn_stats": 0}
 
 
+# ---- the activations' memory format -------------------------------------
+
+# ``_nchw`` as the card has it (the NHWC input's channels-last view) and as
+# a contiguous NCHW copy
+LAYOUTS = {"channels_last": lambda x: x.permute(0, 3, 1, 2),
+           "nchw": lambda x: x.permute(0, 3, 1, 2).contiguous()}
+LAYOUT_MODELS = {"unet": {}, "unet_multihead": {},
+                 "unet_lc_multihead": {"num_clients": K, "client_id": 1}}
+
+
+def _layout_model(name: str, device="cpu"):
+    model = net_factory(name, in_chns=3, class_num=3, **LAYOUT_MODELS[name])
+    init_torch_default(model, torch.Generator().manual_seed(11))
+    return model.to(device).train()
+
+
+def _concatenated(conv: blocks.Conv, parts) -> torch.Tensor:
+    return torch.nn.Conv2d.forward(conv, torch.cat(parts, dim=1))
+
+
+def _forward_in_layout(monkeypatch, model, images, layout: str, heatmaps_only=False,
+                       concatenated=False):
+    """A train-mode forward whose model sees its input in ``layout``: its
+    outputs, the dropout keep masks it drew, and its generator's state.
+    ``concatenated`` makes ``Conv`` concatenate its parts on the card too."""
+    masks = []
+    draw = blocks.dropout_keep
+
+    def recorded(*args, **kw):
+        keep = draw(*args, **kw)
+        masks.append(keep.clone())
+        return keep
+
+    g = torch.Generator(device=images.device).manual_seed(3)
+    kw = {"heatmaps_only": True} if heatmaps_only else {}
+    with monkeypatch.context() as m, torch.set_grad_enabled(not heatmaps_only):
+        m.setattr(blocks, "dropout_keep", recorded)
+        m.setattr(unet, "_nchw", LAYOUTS[layout])
+        if concatenated:
+            m.setattr(blocks.Conv, "_forward_parts", _concatenated)
+        out = model(images, emb_idx=2, generator=g, **kw)
+    return out, masks, g.get_state()
+
+
+@pytest.mark.parametrize("name, heatmaps_only", [
+    *((name, False) for name in sorted(LAYOUT_MODELS)), ("unet_lc_multihead", True)],
+    ids=[*sorted(LAYOUT_MODELS), "unet_lc_multihead-heatmaps_only"])
+def test_blocks_give_the_same_results_in_either_memory_format(monkeypatch, name, heatmaps_only):
+    """The same model and input, once as contiguous NCHW and once as the
+    channels-last view the card runs: every block keeps the channels-last
+    format; logits, aux outputs, heatmaps and every running statistic agree
+    to fp32 rounding; the dropout masks and the generator's state after are
+    the same bits. The LC model's statistics-only forward too."""
+    model = _layout_model(name)
+    twin = copy.deepcopy(model)
+    images = torch.rand(2, IMG, IMG, 3, generator=torch.Generator().manual_seed(5))
+    got, got_masks, got_state = _forward_in_layout(monkeypatch, model, images, "channels_last",
+                                                   heatmaps_only)
+    want, want_masks, want_state = _forward_in_layout(monkeypatch, twin, images, "nchw",
+                                                      heatmaps_only)
+    # an NHWC view is contiguous where its NCHW tensor is channels-last
+    assert all(t.is_contiguous() for t in got["features"] + got.get("de", []))
+    assert not any(t.is_contiguous() for t in want["features"] + want.get("de", []))
+    for key in ("logits", "aux", "heatmaps"):
+        assert (key in got) == (key in want)
+        if key in got:
+            torch.testing.assert_close(got[key], want[key])
+    assert got_masks and len(got_masks) == len(want_masks)
+    assert all(torch.equal(a, b) for a, b in zip(got_masks, want_masks))
+    assert torch.equal(got_state, want_state)
+    want_buffers = dict(twin.named_buffers())
+    for n, b in model.named_buffers():
+        torch.testing.assert_close(b, want_buffers[n], msg=n)
+
+
+# (batch, size, the parts' channels, output channels): a small conv, and
+# ODOC's first up block, whose concatenation cuDNN sends to FFT tiling
+PARTS_SHAPES = {"small": (2, 12, (16, 8), 8), "odoc_up1": (12, 48, (128, 128), 128)}
+
+
+@pytest.mark.parametrize("device, shape", [
+    pytest.param("cpu", "small", id="cpu"),
+    pytest.param("cuda", "small", marks=pytest.mark.cuda, id="cuda"),
+    pytest.param("cuda", "odoc_up1", marks=pytest.mark.cuda, id="cuda-odoc_up1")])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_conv_of_parts_equals_conv_of_their_concatenation(request, device, shape, layout):
+    """``Conv._forward_parts`` on a tuple of channel blocks: their
+    concatenation's convolution to fp32 rounding, and so are the gradients.
+    ``Conv.forward`` on the tuple takes that route on the card in fp32, and
+    concatenates on the CPU and under a compute dtype, so that its one
+    convolution rounds once: the same bits as the route it takes."""
+    if device == "cuda":
+        device = request.getfixturevalue("cuda_device")
+        torch.backends.cudnn.allow_tf32 = False
+    n, size, channels, out_ch = PARTS_SHAPES[shape]
+    g = torch.Generator().manual_seed(7)
+    layer = blocks.conv(sum(channels), out_ch)
+    init_torch_default(layer, g)
+    layer.to(device)
+    parts = tuple(LAYOUTS[layout](torch.randn(n, size, size, c, generator=g).to(device))
+                  for c in channels)
+    split = tuple(t.clone().requires_grad_() for t in parts)
+    whole = [t.clone().requires_grad_() for t in parts]
+    got, want = layer._forward_parts(split), layer(torch.cat(whole, dim=1))
+    torch.testing.assert_close(got, want)
+    grads = torch.autograd.grad(got.square().sum(), [*split, layer.weight, layer.bias])
+    wants = torch.autograd.grad(want.square().sum(), [*whole, layer.weight, layer.bias])
+    for a, b in zip(grads, wants):
+        # a weight's gradient sums n x size^2 products a tap: rounding
+        # relative to its largest
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+    with torch.no_grad():
+        route = layer._forward_parts(parts) if parts[0].is_cuda else layer(torch.cat(parts, dim=1))
+        assert torch.equal(layer(parts), route)
+        with compute_dtype(torch.bfloat16):
+            assert torch.equal(layer(parts), layer(torch.cat(parts, dim=1)))
+
+
 # ---- on the card ---------------------------------------------------------
 
 HEAD_SHAPES = {f"{task}.head{i}": shape for task, shapes in DSN_HEAD_SHAPES.items()
@@ -420,3 +541,66 @@ def test_an_ours_round_on_the_card_launches_12_a_step_and_matches_full_forwards(
     got, want = metrics["total_loss"].double().cpu(), full["total_loss"].double().cpu()
     gap = ((got - want).abs() / want.abs()).max().item()
     assert gap <= limit["limits"]["loss"], (got.tolist(), want.tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 3])
+def test_nchw_is_a_view_of_the_input_on_the_card(cuda_device, channels):
+    """``_nchw`` copies nothing on the card: at C = 3 a channels-last view
+    of the NHWC input; at C = 1 the tensor a contiguous copy gives, strides
+    and all, since a 1-channel tensor is both formats."""
+    x = torch.rand(2, 256, 256, channels, device=cuda_device)
+    got = unet._nchw(x)
+    assert got.data_ptr() == x.data_ptr() and got.shape == (2, channels, 256, 256)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    if channels == 1:
+        copied = x.permute(0, 3, 1, 2).contiguous()
+        assert got.stride() == copied.stride() and copied.data_ptr() == x.data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout, concatenated", [
+    ("nchw", True), ("nchw", False), ("channels_last", True)],
+    ids=["nchw-concatenated", "nchw-parts", "channels_last-concatenated"])
+def test_the_lc_model_runs_channels_last_on_the_card_at_odocs_shape(
+        cuda_device, monkeypatch, layout, concatenated):
+    """ODOC's shape (384^2, C = 3), train mode: every encoder stage's and up
+    block's output is channels-last, and the logits, aux outputs, heatmaps
+    and running statistics match a forward of the same model in another
+    route to fp32 rounding (norm-relative gap at most 1e-4: cuDNN's
+    algorithms differ between the routes, through the model's 23
+    convolutions), with the same dropout masks and generator state. The
+    routes: contiguous NCHW with the up blocks' concatenations (the route
+    before the card ran channels-last), with their parts, and channels-last
+    with the concatenations."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _layout_model("unet_lc_multihead", cuda_device)
+    twin = copy.deepcopy(model)
+    images = torch.rand(2, 384, 384, 3, generator=torch.Generator().manual_seed(5)).to(cuda_device)
+    outputs = []
+    blocks_ = model.encoder.stages() + [getattr(model.decoder, f"up{i}") for i in range(1, 5)]
+    hooks = [b.register_forward_hook(lambda mod, args, out: outputs.append(out)) for b in blocks_]
+    try:
+        got, got_masks, got_state = _forward_in_layout(monkeypatch, model, images, "channels_last")
+    finally:
+        for h in hooks:
+            h.remove()
+    assert len(outputs) == 9
+    assert all(t.is_contiguous(memory_format=torch.channels_last) for t in outputs)
+    want, want_masks, want_state = _forward_in_layout(monkeypatch, twin, images, layout,
+                                                      concatenated=concatenated)
+    pairs = [("logits", got["logits"], want["logits"]),
+             ("heatmap", got["heatmaps"][-1], want["heatmaps"][-1])]
+    pairs += [(f"aux{i}", a, b) for i, (a, b) in enumerate(zip(got["aux"], want["aux"]))]
+    want_buffers = dict(twin.named_buffers())
+    pairs += [(n, b, want_buffers[n]) for n, b in model.named_buffers()]
+    with torch.no_grad():
+        gaps = {name: float((a - b).norm() / b.norm()) for name, a, b in pairs}
+    print(f"norm-relative gaps, channels-last with parts against {layout} "
+          f"{'concatenated' if concatenated else 'with parts'}:",
+          {n: g for n, g in gaps.items() if "." not in n}, "running statistics, worst:",
+          max(g for n, g in gaps.items() if "." in n))
+    assert max(gaps.values()) <= 1e-4, gaps
+    assert all(torch.equal(a, b) for a, b in zip(got_masks, want_masks))
+    assert torch.equal(got_state, want_state)
