@@ -25,7 +25,7 @@
 // operations, an FMA counting two) and exp once, then 2C + 1 per ordered pair
 // (C FMAs into acc, one add to K), plus the border pixels' exp(-|f(q)|^2/2)
 // and each pixel's K - <y, acc>: 3.05 G operations over 67 TFLOP/s = 46 us
-// (chip_smoke.gated_crf_work). Its 105 M exps run on the special-function
+// (tools/kernel_times.py gated_crf_work). Its 105 M exps run on the special-function
 // units (16 a clock per SM), ~25 us beside that. y + f read once and acc
 // written once are 78 MB over 3.35 TB/s = 23 us. So the pass is bound by
 // operations. This design forms every ordered pair's weight: it issues

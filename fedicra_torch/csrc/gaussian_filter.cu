@@ -14,7 +14,7 @@
 // (B = 12, N = 192^2 = 36864, D = 5, C = 3): 1.63e10 ordered pairs a launch.
 // The function's least fp32 work (each unordered pair's exponent once from
 // per-point norms, C FMAs per ordered pair) over 67 TFLOP/s is 2.7991 ms
-// (chip_smoke.gaussian_filter_work), bound by operations. Its exps run on
+// (tools/kernel_times.py gaussian_filter_work), bound by operations. Its exps run on
 // the special-function units, 16 per SM per clock: one per ordered pair, as
 // this kernel takes them, is 3.9 ms at 1.98 GHz and 4.4 ms at 1.75 GHz, the
 // floor of this design. The first design formed every pair's direct
@@ -67,7 +67,7 @@
 // fixed order everywhere, so a call is bit-reproducible on a given card
 // (the plan depends on its SM count).
 //
-// ptxas for <5, 3> (chip_smoke's build report): 128 registers, 41120 bytes
+// ptxas for <5, 3> (ops/_build.py build_all's report): 128 registers, 41120 bytes
 // of static shared memory, two blocks (16 warps) per SM; the whole blocks
 // spill 24 bytes and reload 32 (one reload a tile in the main loop), the
 // shares 12 and 12. Tilings that take fewer registers, or pipeline the

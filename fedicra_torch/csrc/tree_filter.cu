@@ -98,7 +98,7 @@
 // parent, ppos and w out, and the level offsets: ~0.064 ms for 48 images at
 // 384^2; cptr is the design's); the design is bound by the dependency
 // chain, one step per BFS level (2,379-3,377 levels for one step's trees at
-// 384^2 in chip_smoke.py's [tree-kernels]), each a few dependent shared
+// 384^2, tools/kernel_times.py's tree_root rows), each a few dependent shared
 // loads, the ballots, two barriers and the level's stores.
 //
 // K3 (filter forward) and K4 (backward). The arithmetic is two passes over

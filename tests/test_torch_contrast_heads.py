@@ -5,9 +5,8 @@ and the U-Net family's activations, channels-last on the card: the same
 results in either memory format.
 
 This file imports no JAX, so the tests marked ``cuda`` run on a machine with
-a card and no JAX stack::
-
-    python -m pytest --noconftest -m cuda tests/test_torch_contrast_heads.py
+a card and no JAX stack; the README names the command that runs every card
+test.
 """
 
 import copy
@@ -19,7 +18,6 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from chip_smoke import DSN_HEAD_SHAPES, direct_float64_moments, dsn_head_inputs
 from fedicra_torch.engine.config import TrainConfig
 from fedicra_torch.engine.objective import _contrast_loss
 from fedicra_torch.models import blocks, net_factory, unet
@@ -29,6 +27,8 @@ from fedicra_torch.ops import dsn_stats_cuda as dsn
 from fedicra_torch.parallel import DataShard, spawn_ranks
 from fedicra_torch.parallel.data_axis import data_shard
 from fedicra_torch.utils import profiling
+from torch_card import (DSN_HEAD_SHAPES, cuda_device, direct_float64_moments,  # noqa: F401
+                        dsn_head_inputs, main_path_setup)
 
 ROOT = Path(__file__).resolve().parents[1]
 K, B, IMG = 5, 4, 32
@@ -43,15 +43,6 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-@pytest.fixture
-def cuda_device():
-    """The card, for tests marked ``cuda``; skips where there is none."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode, and the model runs "
-                    "channels-last only there")
-    return torch.device("cuda")
 
 
 def _models(task: str, client_id: int = 0, device="cpu"):
@@ -415,7 +406,6 @@ def test_conv_of_parts_equals_conv_of_their_concatenation(request, device, shape
     convolution rounds once: the same bits as the route it takes."""
     if device == "cuda":
         device = request.getfixturevalue("cuda_device")
-        torch.backends.cudnn.allow_tf32 = False
     n, size, channels, out_ch = PARTS_SHAPES[shape]
     g = torch.Generator().manual_seed(7)
     layer = blocks.conv(sum(channels), out_ch)
@@ -449,8 +439,6 @@ HEAD_SHAPES = {f"{task}.head{i}": shape for task, shapes in DSN_HEAD_SHAPES.item
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", sorted(HEAD_SHAPES))
 def test_kernel_equals_float64_and_the_plain_twin_at_the_head_shapes(cuda_device, shape):
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     x, w, b = dsn_head_inputs(cuda_device, *HEAD_SHAPES[shape])
     running = (torch.rand(512, device=cuda_device), torch.rand(512, device=cuda_device) + 0.5)
     running_plain = tuple(t.clone() for t in running)
@@ -511,9 +499,6 @@ def test_an_ours_round_on_the_card_launches_12_a_step_and_matches_full_forwards(
     heads x 4 contrast forwards) and 3 host syncs a step; then the same
     round with the contrast forwards full: no launch, and its losses within
     the benchmark's loss limit of the first."""
-    from chip_smoke import full_fp32, main_path_setup
-
-    full_fp32()
     cfg, cid, model, state, round_fn, batches = main_path_setup(cuda_device, iters=3, rep_iters=1,
                                                                 task=task)
     start = state.generator.get_state()
@@ -573,8 +558,6 @@ def test_the_lc_model_runs_channels_last_on_the_card_at_odocs_shape(
     routes: contiguous NCHW with the up blocks' concatenations (the route
     before the card ran channels-last), with their parts, and channels-last
     with the concatenations."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     model = _layout_model("unet_lc_multihead", cuda_device)
     twin = copy.deepcopy(model)
     images = torch.rand(2, 384, 384, 3, generator=torch.Generator().manual_seed(5)).to(cuda_device)

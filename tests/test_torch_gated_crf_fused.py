@@ -7,8 +7,12 @@ tests/test_gated_crf_pallas.py runs it): the loss, and acc scaled by
 -2/(B H W) against JAX's gradient with respect to the probabilities. The
 identity's cancellation is held on near one-hot maps against a float64 run.
 The autograd route is driven here with the twin standing in for the launch,
-and chip_smoke's count of the pass's least work against an enumeration.
+and ``tools/kernel_times.py``'s count of the pass's least work against an
+enumeration.
 """
+
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -16,10 +20,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import confident_logits, gated_crf_work, smooth_images
 from fedicra_torch.losses.gated_crf import gated_crf_features
 from fedicra_torch.ops import gated_crf_cuda
 from fedicra_tpu.ops.gated_crf_pallas import gated_crf_loss_pallas
+from torch_card import confident_logits, smooth_images
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+from kernel_times import gated_crf_work  # noqa: E402
 
 
 def _inputs(seed, b, c, n_img, h, w):
@@ -93,8 +100,8 @@ def test_fused_twin_agrees_with_pairwise_twin(radius):
 
 @pytest.mark.parametrize("h, w, r", [(37, 70, 5), (9, 8, 5), (16, 16, 1)])
 def test_gated_crf_work_counts_pairs_inside_once(h, w, r):
-    """chip_smoke's bound count against an enumeration of every (pixel,
-    offset) pair, down to images narrower than the window."""
+    """The bound's count of the pass's least work against an enumeration of
+    every (pixel, offset) pair, down to images narrower than the window."""
     b, c, nf = 2, 3, 5
     inside = 0
     border = set()

@@ -34,9 +34,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import smooth_images
 from fedicra_torch.ops.gaussian_filter_cuda import bilateral_features
 from fedicra_tpu.ops.pallas_kernels import _gaussian_filter_xla
+from torch_card import smooth_images
 
 LOG2E = float(np.float32(1.4426950408889634))  # the kernel's fp32 constant
 ROWS_PER_BLOCK = 256  # query rows per block (one mean each)

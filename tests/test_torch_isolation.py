@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX stack in its imports (package and
-chip_smoke.py), no silent CPU runs."""
+"""The port stands alone: no JAX stack in its imports (the package, the
+card tests and what they share, and the kernel-timing tool: the card's
+machine has no JAX), no silent CPU runs."""
 
 import ast
 from pathlib import Path
@@ -9,7 +10,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fedicra_tpu")
-PORT_FILES = sorted((ROOT / "fedicra_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# what runs on the card besides the package: the card tests (run with --noconftest),
+# what they share, and the kernel-timing tool
+CARD_FILES = [ROOT / "tests" / name for name in (
+    "torch_card.py", "test_torch_kernels.py", "test_torch_spans.py", "test_torch_contrast_heads.py",
+    "test_torch_card_round.py", "test_torch_card_federation.py")] + [ROOT / "tools" / "kernel_times.py"]
+PORT_FILES = sorted((ROOT / "fedicra_torch").rglob("*.py")) + CARD_FILES
 
 
 def _imported_modules(path: Path):
@@ -31,7 +37,7 @@ def test_port_module_imports_no_jax_stack(path):
 
 
 def test_port_files_were_found():
-    assert len(PORT_FILES) > 10 and (ROOT / "chip_smoke.py").exists()
+    assert len(PORT_FILES) > 10 and all(p.exists() for p in CARD_FILES)
 
 
 def test_port_files_include_every_package_of_the_port():

@@ -3,27 +3,18 @@ checks here, their kernels on the card.
 
 This file imports no JAX, so the tests marked ``cuda`` run on a machine with
 a card and no JAX stack (the repo's conftest imports JAX, hence
-``--noconftest``)::
-
-    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+``--noconftest``); the README names the command that runs every card test.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
-from chip_smoke import (MST_TILE_LOCAL_BYTES, MST_TILE_REGISTERS, confident_logits,
-                        serpentine_weights, smooth_images)
 from fedicra_torch.losses.gated_crf import gated_crf_features
 from fedicra_torch.ops import gated_crf_cuda, gaussian_filter_cuda, tree_filter_cuda
-
-
-@pytest.fixture
-def cuda_device():
-    """The card, for tests marked ``cuda``; skips where there is none."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    return torch.device("cuda")
+from torch_card import (MST_TILE_LOCAL_BYTES, MST_TILE_REGISTERS, confident_logits,  # noqa: F401
+                        cuda_device, serpentine_weights, smooth_images, tree_guides)
 
 
 def test_wrapper_refuses_cpu_tensors_before_launching():
@@ -83,13 +74,19 @@ def _confident_inputs(rng, b, c, h, w, nf=5):
      (12, 3, 5, 64, 64, 5, True),
      # FAZ (2 classes, a gray image: F = 3) and Polyp (2 classes, rgb: F = 5) at batch 12
      (12, 2, 3, 128, 128, 5, False), (12, 2, 3, 128, 128, 5, True),
-     (12, 2, 5, 96, 96, 5, False), (12, 2, 5, 96, 96, 5, True)],
+     (12, 2, 5, 96, 96, 5, False), (12, 2, 5, 96, 96, 5, True),
+     # a step of each task: ODOC, FAZ, Polyp
+     (12, 3, 5, 384, 384, 5, False), (12, 3, 5, 384, 384, 5, True),
+     (12, 2, 3, 256, 256, 5, False), (12, 2, 3, 256, 256, 5, True),
+     (12, 2, 5, 384, 384, 5, False), (12, 2, 5, 384, 384, 5, True)],
 )
 def test_kernel_matches_plain_twin(cuda_device, b, c, nf, h, w, r, confident):
-    """Loss at rtol 1e-5 and acc at rtol 1e-4 / atol 1e-6 against the fused
-    twin, including ragged tiles, every pixel within the radius of a border
-    and near one-hot maps; one launch per forward and none in the backward,
-    whose dL/dy is -2/(B H W) acc; the same input gives the same bits."""
+    """Loss at rtol 1e-5 against the fused twin, the pairwise twin and the
+    fused twin in float64, and acc at rtol 1e-4 / atol 1e-6 against the
+    fused twin, including ragged tiles, every pixel within the radius of a
+    border and near one-hot maps; one launch per forward and none in the
+    backward, whose dL/dy is -2/(B H W) acc; the same input gives the same
+    bits, with acc written or not."""
     rng = np.random.default_rng(b * 100 + h)
     if confident:  # xy + the smooth image's nf - 2 channels
         logits, f = _confident_inputs(rng, b, c, h, w, nf)
@@ -107,18 +104,22 @@ def test_kernel_matches_plain_twin(cuda_device, b, c, nf, h, w, r, confident):
     assert gated_crf_cuda.launches == {"gated_crf": 1}
     torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
     torch.testing.assert_close(got, gated_crf_cuda.gated_crf_potts_plain(y.detach(), f, r), rtol=1e-5, atol=0)
+    exact, _ = gated_crf_cuda.gated_crf_potts_fused_plain(y.detach().double(), f.double(), r)
+    torch.testing.assert_close(got.detach().double(), exact, rtol=1e-5, atol=0)
     loss, acc = gated_crf_cuda.gated_crf_fused_cuda(y.detach(), f, r)
     torch.testing.assert_close(acc, want_acc, rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(y.grad, want_acc * (-2.0 / (b * h * w)), rtol=1e-4, atol=1e-6)
     # no float atomics: the same input gives the bit-identical loss and acc
     loss2, acc2 = gated_crf_cuda.gated_crf_fused_cuda(y.detach(), f, r)
     assert torch.equal(loss, got.detach()) and torch.equal(loss2, loss) and torch.equal(acc2, acc)
+    loss_n, acc_n = gated_crf_cuda.gated_crf_fused_cuda(y.detach(), f, r, need_acc=False)
+    assert acc_n is None and torch.equal(loss_n, loss)
 
 
 KERNEL_SHAPES = [
     (2, 3, 5, 37, 70, 5, False), (1, 2, 3, 9, 33, 2, False), (3, 4, 3, 16, 16, 1, False),
     (12, 3, 5, 64, 64, 5, False), (2, 4, 5, 40, 72, 4, False), (2, 3, 5, 37, 70, 5, True),
-    (12, 3, 5, 64, 64, 5, True),
+    (12, 3, 5, 64, 64, 5, True), (12, 3, 5, 384, 384, 5, False), (12, 3, 5, 384, 384, 5, True),
 ]
 
 
@@ -260,40 +261,54 @@ def test_gaussian_kernel_matches_plain_twin(cuda_device, b, n, d, c):
     assert torch.equal(gaussian_filter_cuda.gaussian_filter_cuda(f, v), got.detach())
 
 
-def _direct_float64(feats: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """sum_j exp(-1/2 ||f_i - f_j||^2) v_j in float64 from direct differences."""
+def _direct_float64(feats: torch.Tensor, values: torch.Tensor, rows=None) -> torch.Tensor:
+    """sum_j exp(-1/2 ||f_i - f_j||^2) v_j in float64 from direct differences,
+    over every row i or over the rows ``rows`` of each image."""
     f = feats.double()
-    d2 = ((f[:, :, None, :] - f[:, None, :, :]) ** 2).sum(-1)
-    return torch.exp(-0.5 * d2) @ values.double()
+    if rows is None:
+        d2 = ((f[:, :, None, :] - f[:, None, :, :]) ** 2).sum(-1)
+        return torch.exp(-0.5 * d2) @ values.double()
+    out, rows = [], rows.to(f.device)
+    for k in range(f.shape[0]):  # one image at a time: (rows, N, D) differences
+        d2 = ((f[k, rows][:, None, :] - f[k][None, :, :]) ** 2).sum(-1)
+        out.append(torch.exp(-0.5 * d2) @ values[k].double())
+    return torch.stack(out)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h, w, c", [(37, 41, 3), (48, 48, 4), (23, 61, 1)])
-def test_gaussian_kernel_on_white_regions_matches_float64(cuda_device, h, w, c):
+@pytest.mark.parametrize("b, h, w, c", [(2, 37, 41, 3), (2, 48, 48, 4), (2, 23, 61, 1),
+                                        # the dense CRF's filter beside ODOC's step: N = 192^2
+                                        (12, 192, 192, 3)])
+def test_gaussian_kernel_on_white_regions_matches_float64(cuda_device, b, h, w, c):
     """Dense-CRF features ([x/50, y/50, rgb/15] of a smooth image scaled to
     0..255) with a white square, where |f|^2 reaches ~900 and the expanded
-    exponent's terms cancel most: value at rtol 1e-4 against a float64 direct
-    sum, and at rtol 1e-3 against the fp32 twin, which carries ~1e-4 of each
-    exponent's rounding there; two launches, forward and VJP; same bits."""
+    exponent's terms cancel most: value and VJP at rtol 1e-4 against a
+    float64 direct sum (on 256 rows of each image where N passes 4096), and
+    at rtol 1e-3 against the fp32 twin, which carries ~1e-4 of each
+    exponent's rounding there (atol 1e-6 of its largest output; 1e-5 where
+    N passes 4096); two launches, forward and VJP; same bits."""
     rng = np.random.default_rng(h * w)
-    img = smooth_images(rng, 2, h, w)
+    img = smooth_images(rng, b, h, w)
     img[:, h // 4:h // 2 + 3, w // 3:w // 3 + w // 2] = 1.0
     f = gaussian_filter_cuda.bilateral_features(
         torch.as_tensor(img, device=cuda_device) * 255.0, 15.0, 50.0).contiguous()
     assert (f * f).sum(-1).max().item() > 850.0
-    v = torch.tensor(rng.uniform(size=(2, h * w, c)), dtype=torch.float32, device=cuda_device)
-    g = torch.tensor(rng.uniform(size=(2, h * w, c)), dtype=torch.float32, device=cuda_device)
+    v = torch.tensor(rng.uniform(size=(b, h * w, c)), dtype=torch.float32, device=cuda_device)
+    g = torch.tensor(rng.uniform(size=(b, h * w, c)), dtype=torch.float32, device=cuda_device)
     v_k = v.clone().requires_grad_(True)
     gaussian_filter_cuda.reset_launches()
     got = gaussian_filter_cuda.gaussian_kernel_filter(f, v_k)
     (dv,) = torch.autograd.grad(got, v_k, g)
     torch.cuda.synchronize()
     assert gaussian_filter_cuda.launches == {"gaussian_filter": 2}
+    rows = None if h * w <= 4096 else torch.linspace(0, h * w - 1, 256).round().long().unique()
     for out, vals in ((got.detach(), v), (dv, g)):
-        want = _direct_float64(f, vals)
-        torch.testing.assert_close(out.double(), want, rtol=1e-4, atol=1e-6 * want.abs().max().item())
+        want = _direct_float64(f, vals, rows)
+        sub = out if rows is None else out[:, rows.to(cuda_device)]
+        torch.testing.assert_close(sub.double(), want, rtol=1e-4, atol=1e-6 * want.abs().max().item())
         twin = gaussian_filter_cuda.gaussian_filter_plain(f, vals)
-        torch.testing.assert_close(out, twin, rtol=1e-3, atol=1e-6 * twin.abs().max().item())
+        atol = 1e-6 * twin.abs().max().item() if rows is None else 1e-5
+        torch.testing.assert_close(out, twin, rtol=1e-3, atol=atol)
     assert torch.equal(gaussian_filter_cuda.gaussian_filter_cuda(f, v), got.detach())
 
 
@@ -311,32 +326,54 @@ def test_gaussian_kernel_refuses_unsupported_shapes(cuda_device):
         gaussian_filter_cuda.gaussian_filter_cuda(f, v[:, :4].contiguous())
 
 
+def _tree_guides(dev, rng, b, h, w, c, guides):
+    """The guides' rows [T b, V, D] (a low tree's b images first, then the
+    high trees'), zero-padded to the widest, and each high tree's own guide
+    [b, V, c]. ``random``: one low and one high tree of normal guides;
+    ``gray``: the low guide one channel on 256 levels (zero-padded to c, as
+    ``native_structures`` pads it); ``step`` and ``step_gray``: a step's
+    four trees from ``tree_guides`` (the low guide 3 channels, or a gray
+    image repeated to 3 channels, as the objective repeats it)."""
+    V = h * w
+    if guides.startswith("step"):
+        low, highs = tree_guides(dev, rng, b, h, w, c, channels=1 if guides == "step_gray" else 3)
+        flats = [g.reshape(b, V, -1) for g in (low, *highs)]
+        d = max(t.shape[-1] for t in flats)
+        emb = torch.cat([F.pad(t, (0, d - t.shape[-1])) for t in flats]).contiguous()
+        return emb, [t.contiguous() for t in flats[1:]]
+    emb = torch.tensor(rng.normal(size=(2 * b, V, c)), dtype=torch.float32, device=dev)
+    if guides == "gray":
+        emb[:b, :, 1:] = 0.0
+        emb[:b, :, 0] = torch.tensor(np.round(rng.uniform(size=(b, V)) * 255.0) / 255.0,
+                                     dtype=torch.float32, device=dev)
+    return emb, [emb[b:].contiguous()]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b, h, w, c, gray", [(2, 12, 12, 3, False), (3, 17, 40, 2, False),
-                                              (2, 64, 48, 4, False), (1, 1, 9, 1, False),
-                                              (2, 256, 256, 2, True)])
-def test_tree_kernels_match_plain_twins(cuda_device, b, h, w, c, gray):
+@pytest.mark.parametrize("b, h, w, c, guides", [
+    (2, 12, 12, 3, "random"), (3, 17, 40, 2, "random"), (2, 64, 48, 4, "random"),
+    (1, 1, 9, 1, "random"), (2, 256, 256, 2, "gray"),
+    # a step's four trees of 12 images: ODOC's, FAZ's
+    (12, 384, 384, 3, "step"), (12, 256, 256, 2, "step_gray")])
+def test_tree_kernels_match_plain_twins(cuda_device, b, h, w, c, guides):
     """The four tree kernels against their twins on the same inputs: the MST
-    and the BFS arrays exactly (levels up to each image's count), the weights
-    at rtol 1e-6, the filter's y at rtol 1e-4 and its backward at rtol 1e-3;
-    one launch each. ``gray``: at FAZ's size and C, the low trees' guide one
-    channel on 256 levels (zero-padded to c, as ``native_structures`` pads
-    it), whose many equal edge weights the MST must break by edge index as
-    its twin. D = 1 is a function-level case: FAZ's objective repeats its
-    gray image to 3 channels, the shape chip_smoke.py's ``[tasks]`` holds."""
+    (V - 1 edges an image) and the BFS arrays exactly (levels up to each
+    image's count), the weights at rtol 1e-6, each tree's filter y at rtol
+    1e-4 and its backward at rtol 1e-3; one MST and one rooting launch for
+    all trees, one filter launch each way a tree. The MST's weights are the
+    objective's, ||d guide||^2 + 1. D = 1 (``gray``) is a function-level
+    case: FAZ's objective repeats its gray image to 3 channels, which
+    ``step_gray`` holds."""
     from fedicra_torch.ops.mst import grid_edges
 
     rng = np.random.default_rng(h * w)
     V = h * w
     eu, ev = (torch.as_tensor(a, device=cuda_device).long() for a in grid_edges(h, w))
-    emb = torch.tensor(rng.normal(size=(2 * b, V, c)), dtype=torch.float32, device=cuda_device)
-    if gray:
-        emb[:b, :, 1:] = 0.0
-        emb[:b, :, 0] = torch.tensor(np.round(rng.uniform(size=(b, V)) * 255.0) / 255.0,
-                                     dtype=torch.float32, device=cuda_device)
+    emb, high_embeds = _tree_guides(cuda_device, rng, b, h, w, c, guides)
     weights = ((emb[:, eu] - emb[:, ev]) ** 2).sum(-1) + 1.0
     tree_filter_cuda.reset_launches()
     sel = tree_filter_cuda.tree_mst(weights, h, w)
+    assert (sel.sum(dim=1) == V - 1).all()
     assert torch.equal(sel, tree_filter_cuda.tree_mst_plain(weights, h, w))
     tree = tree_filter_cuda.tree_root(sel, emb, h, w, b, 0.02)
     used = torch.arange(V + 1, device=cuda_device) <= tree.n_levels[:, None].long()
@@ -351,20 +388,25 @@ def test_tree_kernels_match_plain_twins(cuda_device, b, h, w, c, gray):
         assert torch.equal(getattr(tree, name), getattr(twin, name)), name
     assert torch.equal(tree.level[used], twin.level[used])
     torch.testing.assert_close(tree.w, twin.w, rtol=1e-6, atol=1.2e-38)
-    high = tree.images(b, 2 * b)
     x = torch.softmax(torch.tensor(rng.normal(size=(b, V, c)), dtype=torch.float32,
                                    device=cuda_device), -1)
     g = torch.tensor(rng.normal(size=(b, V, c)), dtype=torch.float32, device=cuda_device)
-    A, F, y = tree_filter_cuda.tree_filter_fwd_cuda(x, high)
-    torch.testing.assert_close(y, tree_filter_cuda.tree_filter_fwd_plain(x, high)[2],
-                               rtol=1e-4, atol=1e-5)
-    e = emb[b:].contiguous()
-    got = tree_filter_cuda.tree_filter_bwd_cuda(g, y, A, F, high, e)
-    want = tree_filter_cuda.tree_filter_bwd_plain(g, y, A, F, high, e)
-    for a, bb in zip(got, want):
-        torch.testing.assert_close(a, bb, rtol=1e-3, atol=1e-4 * bb.abs().max().item())
+    for k, e in enumerate([None, *high_embeds]):
+        t = tree.images(k * b, (k + 1) * b)
+        A, F_, y = tree_filter_cuda.tree_filter_fwd_cuda(x, t)
+        torch.testing.assert_close(y, tree_filter_cuda.tree_filter_fwd_plain(x, t)[2],
+                                   rtol=1e-4, atol=1e-5)
+        got = tree_filter_cuda.tree_filter_bwd_cuda(g, y, A, F_, t, e)
+        want = tree_filter_cuda.tree_filter_bwd_plain(g, y, A, F_, t, e)
+        for a, bb in zip(got, want):
+            if bb is None:
+                assert a is None
+                continue
+            torch.testing.assert_close(a, bb, rtol=1e-3, atol=1e-4 * bb.abs().max().item())
     torch.cuda.synchronize()
-    assert tree_filter_cuda.launches == {"tree_mst": 1, "tree_root": 2, "tree_fwd": 1, "tree_bwd": 1}
+    trees = 1 + len(high_embeds)
+    assert tree_filter_cuda.launches == {"tree_mst": 1, "tree_root": 2, "tree_fwd": trees,
+                                         "tree_bwd": trees}
 
 
 def _comb_weights(h, w):
@@ -485,7 +527,8 @@ def _hold_tree(got, want):
 
 STRUCTURE_CASES = [  # (kind, images, h, w): ragged tiles, 1 x N and N x 1 grids
     ("random", 3, 33, 37), ("random", 2, 64, 48), ("random", 1, 1, 200), ("random", 1, 200, 1),
-    ("equal", 2, 33, 37), ("equal", 1, 1, 70), ("serpentine", 1, 33, 37), ("comb", 1, 96, 80),
+    ("equal", 2, 33, 37), ("equal", 1, 1, 70), ("serpentine", 1, 33, 37), ("serpentine", 1, 64, 64),
+    ("comb", 1, 96, 80),
 ]
 
 

@@ -2,9 +2,8 @@
 and the benchmark readers that read them.
 
 This file imports no JAX, so the tests marked ``cuda`` run on a machine with
-a card and no JAX stack::
-
-    python -m pytest --noconftest -m cuda tests/test_torch_spans.py
+a card and no JAX stack; the README names the command that runs every card
+test.
 """
 
 import ast
@@ -24,6 +23,7 @@ from fedicra_torch.losses.tree_energy import multi_scale_tree_energy_loss
 from fedicra_torch.models import net_factory
 from fedicra_torch.utils import profiling
 from fedicra_torch.utils.profiling import HostSyncs, annotate
+from torch_card import cuda_device  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -53,14 +53,6 @@ def empty_table():
     yield
     torch.set_num_threads(threads)
     profiling.reset()
-
-
-@pytest.fixture
-def cuda_device():
-    """The card, for tests marked ``cuda``; skips where there is none."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: CUDA events and sync counts have no CPU mode")
-    return torch.device("cuda")
 
 
 def _profiled():
