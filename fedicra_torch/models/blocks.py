@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import dsn_stats_cuda
+from ..ops import dsn_epilogue_cuda, dsn_stats_cuda
 from ..parallel.data_axis import batch_draw, current_shard
 
 LRELU_SLOPE = 0.01  # torch nn.LeakyReLU default negative_slope
@@ -292,9 +292,11 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> to
 class DSNHead(nn.Module):
     """Deep-supervision head: Conv3x3 -> BN -> ReLU -> Dropout2d -> Conv1x1 (no bias).
 
-    ``forward`` is written plainly, without the TPU version's row tiling.
-    fp32 under any compute dtype: JAX's head convolves by ``lax`` itself,
-    out of AMP's reach.
+    ``forward`` is written without the TPU version's row tiling; on the
+    card everything after the 3x3 conv runs as hand-written passes over its
+    512-channel output, which form none of the chain's other 512-channel
+    maps (``ops/dsn_epilogue_cuda.py``). fp32 under any compute dtype:
+    JAX's head convolves by ``lax`` itself, out of AMP's reach.
 
     ``advance_stats`` is the head's statistics-only forward, for a caller
     that reads none of its outputs (the contrast forwards, which read only
@@ -317,13 +319,19 @@ class DSNHead(nn.Module):
         self.drop_rate = drop_rate
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        """The 3x3 convolution, then the rest of the head on its output by
+        ``ops/dsn_epilogue_cuda.py``: on the card its kernels, on the CPU
+        the PyTorch composition. The Dropout2d keep mask is drawn here, as
+        ``dropout`` draws it."""
         # NCHW, whatever the model's format: cuDNN has no channels-last fp32
-        # kernel for the 512-channel convolutions, and would transpose
-        # through workspaces the size of the 512-channel map
-        h = F.relu(self.bn(self.conv(x.contiguous())))
-        if self.training:
-            h = dropout(h, self.drop_rate, generator, channels=True)
-        return self.out(h)
+        # kernel for the 512-channel convolution, and would transpose
+        # through workspaces the size of its output
+        y = self.conv(x.contiguous())
+        keep = None
+        if self.training and self.drop_rate != 0.0:
+            keep = dropout_keep(y.shape, self.drop_rate, generator, device=y.device,
+                                dtype=self.bn.weight.dtype, channels=True)
+        return dsn_epilogue_cuda.dsn_epilogue(y, self.bn, self.out.weight, keep, self.drop_rate)
 
     def advance_stats(self, x: torch.Tensor, generator=None) -> None:
         """The train-mode forward's running statistics and dropout draw, and

@@ -223,10 +223,10 @@ class DecoderMultiHead(Decoder):
             return {"de": de}
         out = super().forward(feature, generator)
         sources = out["de"][1:]
-        out["aux"] = [
-            getattr(self, f"dsn_head{i + 1}")(sources[i], generator)
-            for i in range(self.num_heads)
-        ]
+        out["aux"] = []
+        for i in range(self.num_heads):
+            with annotate("fedicra.dsn.head", head=i + 1):
+                out["aux"].append(getattr(self, f"dsn_head{i + 1}")(sources[i], generator))
         return out
 
 

@@ -14,7 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fedicra_tpu")
 # what they share, and the kernel-timing tool
 CARD_FILES = [ROOT / "tests" / name for name in (
     "torch_card.py", "test_torch_kernels.py", "test_torch_spans.py", "test_torch_contrast_heads.py",
-    "test_torch_card_round.py", "test_torch_card_federation.py")] + [ROOT / "tools" / "kernel_times.py"]
+    "test_torch_dsn_epilogue.py", "test_torch_card_round.py", "test_torch_card_federation.py")]
+CARD_FILES += [ROOT / "tools" / "kernel_times.py"]
 PORT_FILES = sorted((ROOT / "fedicra_torch").rglob("*.py")) + CARD_FILES
 
 

@@ -31,6 +31,7 @@ sys.path.insert(0, str(ROOT))
 STEP_PARTS = ("fedicra.step.forward", "fedicra.step.contrast", "fedicra.step.tree_term",
               "fedicra.step.crf_term", "fedicra.step.backward")
 HEAD_STATS = "fedicra.contrast.head_stats"  # each DSN head of each contrast forward
+DSN_HEAD = "fedicra.dsn.head"  # each DSN head of the step's own forward
 ROUND_SPANS = ("fedicra.round.load_state", "fedicra.round.split_state")
 # the readers this file's spans feed, and the spans each sums
 SPAN_READERS = {
@@ -108,10 +109,14 @@ def test_round_spans_nest_as_the_step_runs():
         assert [s["name"] for s in heads] == [HEAD_STATS] * 3 * (cfg.num_clients - 1)
         assert [s["ids"] for s in heads] == [{**step["ids"], "head": h}
                                              for h in (1, 2, 3) * (cfg.num_clients - 1)]
+        forward = next(s for s in parts if s["name"] == "fedicra.step.forward")
+        dsn = [s for s in spans if s["parent"] == forward["seq"]]
+        assert [(s["name"], s["ids"]) for s in dsn] == [(DSN_HEAD, {**step["ids"], "head": h})
+                                                        for h in (1, 2, 3)]
     # every model forward of the round lies in a forward or contrast span
     assert len(stamps) == len(steps) * cfg.num_clients
     assert len(spans) == len(ROUND_SPANS) + len(setups) + len(steps) * (
-        1 + len(STEP_PARTS) + 3 * (cfg.num_clients - 1))
+        1 + len(STEP_PARTS) + 3 + 3 * (cfg.num_clients - 1))
     assert profiling.counters() == {}  # host syncs are counted on a card only
 
 
@@ -215,7 +220,7 @@ def _annotated_names():
 def test_span_names_match_no_kernel_name_list():
     names = _annotated_names()
     assert {*STEP_PARTS, *ROUND_SPANS, "fedicra.step", "fedicra.round.phase_setup",
-            "fedicra.tree.filter_backward", HEAD_STATS} == names
+            "fedicra.tree.filter_backward", HEAD_STATS, DSN_HEAD} == names
     substrings = _kernel_name_lists()
     assert {"gated_crf", "conv", "cat", "fill", "index", "reduce"} <= substrings
     assert not [(n, s) for n in names for s in substrings if s in n.lower()]

@@ -147,6 +147,33 @@ def dsn_head_inputs(dev, c: int, side: int, batch: int = BATCH, seed: int = 7):
     return x, w, b
 
 
+def dsn_epilogue_inputs(b: int, c: int, h: int, w: int, k: int, p: float, mode: str, device="cpu",
+                        seed: int = 4):
+    """A DSN head's epilogue inputs: a 3x3 conv's output y (offset, so the
+    batch means matter), a ``BatchNorm`` of c channels in ``mode`` ("train"
+    or "eval") with its affine weights and running buffers drawn away from
+    their initial values, a 1x1 weight of k classes, a keep mask at rate p
+    (None at p = 0 or in eval mode) and aux's gradient g, all drawn on
+    ``device``. Returns ((y, weight, keep, g), bn)."""
+    from fedicra_torch.models.blocks import BatchNorm, dropout_keep
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    draw = lambda *shape: torch.randn(*shape, generator=gen, device=dev)  # noqa: E731
+    y = 0.5 + draw(b, c, h, w)
+    bn = BatchNorm(c).to(dev).train(mode == "train")
+    with torch.no_grad():
+        bn.weight.copy_(1.0 + 0.5 * draw(c))
+        bn.bias.copy_(0.5 * draw(c))
+        bn.running_mean.copy_(draw(c))
+        bn.running_var.copy_(0.5 + draw(c).abs())
+    weight = draw(k, c, 1, 1) / c ** 0.5
+    keep = None
+    if mode == "train" and p != 0.0:
+        keep = dropout_keep((b, c), p, gen, device=dev, dtype=torch.float32, channels=True)
+    return (y, weight, keep, draw(b, k, h, w)), bn
+
+
 def direct_float64_moments(x, w, b=None, chunk: int = 64):
     """The conv's output in float64, ``chunk`` output channels at a time: its
     batch mean and biased variance."""

@@ -3,14 +3,16 @@
 shapes and the other tasks', beside their bounds, plain twins and library
 yardsticks.
 
-    python3 tools/kernel_times.py
+    python3 tools/kernel_times.py [group ...]
 
 From the root of a checkout, on a machine with a CUDA card; it imports no
 JAX. Prints one JSON line, {"device": ..., "rows": [...]}, a row a kernel at
 a task's step shape: ``gated_crf``, ``gaussian_filter`` (the dense CRF's,
-off the main path), ``tree_mst``, ``tree_root``, ``tree_fwd``, ``tree_bwd``
-and ``dsn_stats`` at ODOC's, ``<name>[faz]`` and ``<name>[polyp]`` at the
-other tasks'. Every row has ``ms`` (median of single timed calls, the
+off the main path), ``tree_mst``, ``tree_root``, ``tree_fwd``, ``tree_bwd``,
+``dsn_stats``, ``dsn_epilogue_forward`` and ``dsn_epilogue_backward`` at
+ODOC's, ``<name>[faz]`` and ``<name>[polyp]`` at the other tasks'; named
+groups (``ROW_GROUPS``: gated_crf, gaussian_filter, tree, dsn_stats,
+dsn_epilogue) give their rows alone. Every row has ``ms`` (median of single timed calls, the
 host's set-up inside the events), ``loop_ms`` (a call's share of calls
 launched back to back: the device's time), ``plain_ms`` (the plain twin),
 ``library_ms`` (one library call that computes the same function, or
@@ -23,6 +25,7 @@ card tests (``-m cuda``) do.
 
 from __future__ import annotations
 
+import copy
 import functools
 import json
 import statistics
@@ -345,7 +348,72 @@ def dsn_stats_row(dev, task: str, suffix: str) -> dict:
                library_ms=tot["library"], loop_ms_by_head=by_head)
 
 
-def main() -> int:
+def dsn_epilogue_rows(dev, task: str, suffix: str) -> list:
+    """The epilogue kernels of a step's three DSN heads at the task's shapes
+    (batch 12, 512 channels, its classes, p = 0.1), summed over the heads:
+    the train-mode forward (the statistics pass and the chain's pass; its
+    eval-mode forward, the chain's pass alone, beside it) and the backward
+    (pass A with its sums, then pass B; pass A alone beside it). The plain
+    twin is the PyTorch composition the kernels replaced (cuDNN's batch norm
+    and 1x1 convolution, ReLU and the mask's products), also the library
+    yardstick. The bound is bytes: y (and g) read once, aux (and dy)
+    written once; ``floor_ms`` is the design's own bytes: y read twice each
+    way."""
+    from fedicra_torch.engine.config import TASKS
+    from fedicra_torch.ops import dsn_epilogue_cuda as epi
+    from torch_card import BATCH, DSN_HEAD_SHAPES, DSN_HIDDEN, dsn_epilogue_inputs
+
+    k, p = TASKS[task]["num_classes"], 0.1
+    keys = ("ms", "loop", "plain", "alone_loop", "bytes", "floor")
+    tot = {way: dict.fromkeys(keys, 0.0) for way in ("forward", "backward")}
+    for _, side in DSN_HEAD_SHAPES[task]:
+        (y, weight, keep, g), bn = dsn_epilogue_inputs(BATCH, DSN_HIDDEN, side, side, k, p, "train", dev)
+        plane, out = 4 * y.numel(), 4 * g.numel()
+        fwd = {"ms": lambda: epi.dsn_epilogue(y, bn, weight, keep, p),
+               "plain": lambda: epi.dsn_epilogue_plain(y, bn, weight, keep, p)}
+        eval_bn = copy.deepcopy(bn).eval()
+        with torch.no_grad():
+            head = tot["forward"]
+            head["ms"] += cuda_median_ms(fwd["ms"])
+            head["loop"] += cuda_loop_ms(fwd["ms"])
+            head["plain"] += cuda_median_ms(fwd["plain"])
+            head["alone_loop"] += cuda_loop_ms(lambda: epi.dsn_epilogue(y, eval_bn, weight, None, p))
+        head["bytes"] += plane + out
+        head["floor"] += 2 * plane + out
+        leaves = [y.requires_grad_(), bn.weight, bn.bias, weight.requires_grad_()]
+        graphs = {route: fn(y, bn, weight, keep, p)
+                  for route, fn in (("ms", epi.dsn_epilogue), ("plain", epi.dsn_epilogue_plain))}
+        back = {route: (lambda aux=aux: torch.autograd.grad(aux, leaves, g, retain_graph=True))
+                for route, aux in graphs.items()}
+        head = tot["backward"]
+        head["ms"] += cuda_median_ms(back["ms"])
+        head["loop"] += cuda_loop_ms(back["ms"])
+        head["plain"] += cuda_median_ms(back["plain"])
+        del graphs, back
+        aux = epi.dsn_epilogue(y.detach(), bn, weight, keep, p)  # pass A alone: no gradient for y
+        head["alone_loop"] += cuda_loop_ms(lambda: torch.autograd.grad(aux, leaves[1:], g, retain_graph=True))
+        head["bytes"] += 2 * plane + out
+        head["floor"] += 3 * plane + out
+        del aux, y, g
+        torch.cuda.empty_cache()
+    rows = []
+    for way, alone in (("forward", "eval_loop_ms"), ("backward", "pass_a_loop_ms")):
+        t = tot[way]
+        rows.append(row(f"dsn_epilogue_{way}{suffix}", t["ms"], t["loop"], t["plain"], (0.0, t["bytes"]),
+                        library_ms=t["plain"], floor_ms=bound_ms(0.0, t["floor"])[0], **{alone: t["alone_loop"]}))
+    return rows
+
+
+ROW_GROUPS = ("gated_crf", "gaussian_filter", "tree", "dsn_stats", "dsn_epilogue")
+
+
+def main(argv=None) -> int:
+    """Every row, or the rows of the groups named on the command line
+    (``ROW_GROUPS``)."""
+    groups = set(sys.argv[1:] if argv is None else argv) or set(ROW_GROUPS)
+    if groups - set(ROW_GROUPS):
+        print(f"kernel_times: groups are {', '.join(ROW_GROUPS)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA card", file=sys.stderr)
         return 2
@@ -354,13 +422,19 @@ def main() -> int:
 
     full_fp32()
     dev = torch.device("cuda")
-    rows = [gated_crf_row(dev, "odoc", ""), gaussian_filter_row(dev)]
-    torch.cuda.empty_cache()
-    rows += tree_rows(dev, "odoc", "")
-    rows += [dsn_stats_row(dev, "odoc", ""), dsn_stats_row(dev, "faz", "[faz]")]
-    for task in ("faz", "polyp"):
-        torch.cuda.empty_cache()
-        rows += [gated_crf_row(dev, task, f"[{task}]"), *tree_rows(dev, task, f"[{task}]")]
+    plan = [("gated_crf", lambda: [gated_crf_row(dev, "odoc", "")]),
+            ("gaussian_filter", lambda: [gaussian_filter_row(dev)]),
+            ("tree", lambda: tree_rows(dev, "odoc", "")),
+            ("dsn_stats", lambda: [dsn_stats_row(dev, "odoc", ""), dsn_stats_row(dev, "faz", "[faz]")]),
+            ("dsn_epilogue", lambda: dsn_epilogue_rows(dev, "odoc", "") + dsn_epilogue_rows(dev, "faz", "[faz]"))]
+    plan += [(group, fn) for task in ("faz", "polyp")
+             for group, fn in (("gated_crf", lambda t=task: [gated_crf_row(dev, t, f"[{t}]")]),
+                               ("tree", lambda t=task: tree_rows(dev, t, f"[{t}]")))]
+    rows = []
+    for group, fn in plan:
+        if group in groups:
+            torch.cuda.empty_cache()
+            rows += fn()
     print(json.dumps({"device": {"name": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count(), "torch": torch.__version__},
                       "rows": rows}))
