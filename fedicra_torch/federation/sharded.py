@@ -38,6 +38,14 @@ Differences from JAX:
   strategy but FedAvg and FedICRA (``check_strategy``).
 - ``place_stacked`` is not ported: a rank's clients live on its device from
   the start, and the all-reduce leaves the global payload on every rank.
+
+Under a ``torch.profiler`` session the round emits the spans
+``fedicra.fed.ala`` (each client's merge), ``fedicra.fed.local_round``
+(its ``round_fn`` call) and ``fedicra.fed.aggregate`` (each ``_fedavg``
+call, its all-reduce included), each with id ``cid`` (the aggregate's: the
+first client this rank holds), and counts each all-reduce as
+``collectives`` (``utils/profiling.py``): two a round over a client axis of
+more than one rank.
 """
 
 from __future__ import annotations
@@ -49,9 +57,11 @@ import torch.distributed as dist
 
 from ..data.batcher import materialize_epoch
 from ..device import resolve_device
+from ..engine import trainer
 from ..engine.config import TrainConfig
-from ..engine.trainer import ClientState, make_round_fn
+from ..engine.trainer import ClientState
 from ..parallel.data_axis import current_shard, data_shard
+from ..utils.profiling import annotate, count
 from .ala import learn_gates
 from .strategies import stacked_weighted_mean
 
@@ -121,6 +131,7 @@ def _fedavg(trees: Sequence[Tree], weights: torch.Tensor, total: torch.Tensor, g
     share = weights.sum() / total
     flat = torch.cat([(leaf.float() * share).reshape(-1) for leaf in mean.values()])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    count("collectives")
     out, at = {}, 0
     for name, leaf in mean.items():
         out[name] = flat[at:at + leaf.numel()].view(leaf.shape).to(leaf.dtype)
@@ -149,7 +160,7 @@ def make_sharded_round_fn(model, cfg: TrainConfig, mesh, device=None):
     metrics: {cid: {name: tensor [iters]}}
     """
     check_strategy(cfg)
-    round_fn = make_round_fn(model, cfg, device=resolve_device(device))
+    round_fn = trainer.make_round_fn(model, cfg, device=resolve_device(device))
     shard = mesh.data_shard(cfg.batch_size)
     skip_iters = cfg.ala_skip_iters
 
@@ -168,29 +179,32 @@ def make_sharded_round_fn(model, cfg: TrainConfig, mesh, device=None):
                 state = states[cid]
                 params = gp
                 if has_ala and iter_global > skip_iters:
-                    params, ala_counters[cid] = _ala_merge_spmd(
-                        model, cfg, state.params, gp, gs,
-                        ala_batches[cid] if ala_batches is not None else None,
-                        ala_generators.get(cid), cid, first_run,
-                        ala_raw=ala_raw[cid] if ala_raw is not None else None,
-                        ala_seed=ala_seeds[cid] if ala_seeds is not None else None,
-                        counter0=ala_counters.get(cid, 0),
-                    )
+                    with annotate("fedicra.fed.ala", cid=cid):
+                        params, ala_counters[cid] = _ala_merge_spmd(
+                            model, cfg, state.params, gp, gs,
+                            ala_batches[cid] if ala_batches is not None else None,
+                            ala_generators.get(cid), cid, first_run,
+                            ala_raw=ala_raw[cid] if ala_raw is not None else None,
+                            ala_seed=ala_seeds[cid] if ala_seeds is not None else None,
+                            counter0=ala_counters.get(cid, 0),
+                        )
                 state = ClientState(params, gs, state.current_iter, state.generator)
                 b = {k: torch.as_tensor(v) for k, v in batches[cid].items()}
                 if shard is not None:
                     b = {k: shard.rows(v, dim=1) for k, v in b.items()}
                 step = None if on_step is None else (lambda j, m, _c=cid: on_step(_c, j, m))
-                new_states[cid], metrics[cid] = round_fn(state, b, cid, on_step=step)
+                with annotate("fedicra.fed.local_round", cid=cid):
+                    new_states[cid], metrics[cid] = round_fn(state, b, cid, on_step=step)
 
         w_all = torch.as_tensor(weights, dtype=torch.float32)
         w = w_all[list(mesh.clients)]
         held = [new_states[c] for c in mesh.clients]
-        new_global = {
-            "params": _fedavg([s.params for s in held], w, w_all.sum(), mesh.client_group),
-            "batch_stats": _fedavg([s.batch_stats for s in held], w, w_all.sum(),
-                                   mesh.client_group),
-        }
+        with annotate("fedicra.fed.aggregate", cid=mesh.clients[0]):
+            new_global = {
+                "params": _fedavg([s.params for s in held], w, w_all.sum(), mesh.client_group),
+                "batch_stats": _fedavg([s.batch_stats for s in held], w, w_all.sum(),
+                                       mesh.client_group),
+            }
         return new_states, new_global, metrics, ala_counters
 
     return fed_round

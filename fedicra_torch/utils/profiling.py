@@ -13,6 +13,8 @@ Counterpart of ``fedicra_tpu/utils/profiling.py``:
   uses the card, and appends a record to this module's table when it closes;
 - ``HostSyncs``: counts the synchronising CUDA operations of a block while a
   session records, each against the innermost open span;
+- ``count(counter)``: one count of ``counter`` against the innermost open
+  span while a session records (the sharded round's ``collectives``);
 - ``spans()``, ``counters()``, ``reset()``: read and empty that table. A
   span's device milliseconds are read from its events only here, so the
   spans never synchronise the work they time.
@@ -196,6 +198,13 @@ def _count(counter: str) -> None:
         by_span = _counts.setdefault(counter, {})
         span = _open[-1].name if _open else None
         by_span[span] = by_span.get(span, 0) + 1
+
+
+def count(counter: str) -> None:
+    """Count one ``counter`` against the innermost open span, while a
+    profiler records; otherwise nothing."""
+    if _recording():
+        _count(counter)
 
 
 class HostSyncs:

@@ -228,7 +228,7 @@ def test_sharded_first_run_is_the_host_clients_start_phase(monkeypatch, iters, s
     merge, the port's host merge and the port's sharded round run the same
     epochs: none up to the horizon, 11 in the first round past it, 1 after."""
     import fedicra_torch.federation.ala as port_ala
-    import fedicra_torch.federation.sharded as port_sharded
+    import fedicra_torch.engine.trainer as port_trainer
     from fedicra_torch.engine.trainer import ClientState
     from fedicra_tpu.engine import TrainConfig as JaxConfig
     from fedicra_tpu.federation.ala import ala_set_weights as jax_ala_set_weights
@@ -270,7 +270,7 @@ def test_sharded_first_run_is_the_host_clients_start_phase(monkeypatch, iters, s
         return (ClientState(state.params, state.batch_stats, state.current_iter + iters,
                             state.generator), {"total_loss": torch.zeros(iters)})
 
-    monkeypatch.setattr(port_sharded, "make_round_fn", lambda model, cfg, device: round_fn)
+    monkeypatch.setattr(port_trainer, "make_round_fn", lambda model, cfg, device: round_fn)
     fn = make_sharded_round_fn(None, pcfg, make_mesh(num_clients=1), device="cpu")
     states = {0: ClientState(local_t, {}, 0, None)}
     batches = {0: {"image": torch.zeros(iters, 1), "label": torch.zeros(iters, 1)}}

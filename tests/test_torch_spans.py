@@ -33,6 +33,8 @@ STEP_PARTS = ("fedicra.step.forward", "fedicra.step.contrast", "fedicra.step.tre
 HEAD_STATS = "fedicra.contrast.head_stats"  # each DSN head of each contrast forward
 DSN_HEAD = "fedicra.dsn.head"  # each DSN head of the step's own forward
 ROUND_SPANS = ("fedicra.round.load_state", "fedicra.round.split_state")
+# the sharded round's: each client's ALA merge and local round, the FedAvg
+FED_SPANS = ("fedicra.fed.ala", "fedicra.fed.local_round", "fedicra.fed.aggregate")
 # the readers this file's spans feed, and the spans each sums
 SPAN_READERS = {
     "forward_ms.train": ("fedicra.step.forward",),
@@ -220,7 +222,7 @@ def _annotated_names():
 def test_span_names_match_no_kernel_name_list():
     names = _annotated_names()
     assert {*STEP_PARTS, *ROUND_SPANS, "fedicra.step", "fedicra.round.phase_setup",
-            "fedicra.tree.filter_backward", HEAD_STATS, DSN_HEAD} == names
+            "fedicra.tree.filter_backward", HEAD_STATS, DSN_HEAD, *FED_SPANS} == names
     substrings = _kernel_name_lists()
     assert {"gated_crf", "conv", "cat", "fill", "index", "reduce"} <= substrings
     assert not [(n, s) for n in names for s in substrings if s in n.lower()]
